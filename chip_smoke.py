@@ -12,15 +12,20 @@ What it does, one JSON line per phase on standard output:
   build    builds the kernels' shared library from src/repro_torch/kernels/csrc/
            with nvcc (first use of the library);
   kernels  holds each hand-written kernel against its plain PyTorch version on the
-           card, at the reference's test cases (fp32 and bf16) and at the shapes the
-           serving path gives it, and times kernel, plain version, one library
-           call (a yardstick only; the port never calls it) and the card's bound;
+           card, at the reference's test cases and cases across the wgmma kernel's
+           tile edges (fp32, bf16, fp16) and at the shapes the serving path gives
+           it, records which flash variant each case launched, shows that a call
+           the wgmma kernel cannot take raises instead of running another variant,
+           and times kernel, plain version, one library call (a yardstick only;
+           the port never calls it) and the card's bound; RMSNorm at the decode
+           shape also device-only, 200 calls replayed from a CUDA graph;
   small    a reduced fp32 model: prefill + decode on the card (through the
            kernels) against the same weights on the CPU (plain versions);
   serve    qwen2-7b at full width and depth in bf16, random weights from a seed:
            4 requests of 2048 tokens through make_prefill_step, 16 greedy steps
            through make_serve_step, with the kernels' launch counts set to 0 just
-           before and read just after; then the prefill/decode agreement check.
+           before and read just after (every prefill flash launch must be the
+           wgmma variant); then the prefill/decode agreement check.
 
 Then the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.  Any failed check ends the run with a non-zero exit
@@ -59,6 +64,17 @@ FLASH_CASES = [
     (1, 100, 100, 2, 2, 256, True, 0),     # head_dim 256 (needs > 48 KB shared memory)
     (1, 70, 200, 4, 2, 64, False, 33),     # window without causal, ragged sizes
 ]
+# Cases across the TMA + wgmma kernel's 128-row q tile and 128-key kv tile edges
+# (head_dim 64 and 128, the shapes that kernel takes in 16 bits).
+FLASH_TILE_EDGE_CASES = [
+    (1, 129, 129, 4, 2, 128, True, 0),     # one row and one key past a tile
+    (2, 255, 383, 28, 4, 128, True, 0),    # Sq < Skv, both ragged, qwen2-7b's heads
+    (1, 300, 300, 4, 1, 64, True, 100),    # a window that spans tiles
+    (2, 200, 200, 8, 8, 128, False, 0),    # bidirectional, ragged
+]
+# softcap 20 on scores scaled by 3 x 3, as the reference's test has it
+FLASH_SOFTCAP_CASES = [(1, 64, 64, 2, 2, 32, True, 0), (1, 200, 200, 4, 2, 128, True, 0)]
+SM90_HEAD_DIMS = (64, 128)   # 16-bit head_dims that must run on the wgmma kernel
 RMSNORM_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64)]
 
 # Tolerances (absolute and relative, as in the reference's tests), with reasons:
@@ -114,6 +130,7 @@ def run(args, torch) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.models.lm import LM
     from repro_torch.parallel.trainstep import (make_prefill_step,
                                                 make_serve_step)
@@ -163,6 +180,28 @@ def run(args, torch) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    def graph_ms(fn, calls: int, replays: int = 10) -> float:
+        """Per-call time of `calls` calls of fn captured in one CUDA graph."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (replays * calls)
+
     def compare(name: str, got, want, tol: float) -> float:
         """Max abs error; records a failure unless |got-want| <= tol + tol*|want|."""
         torch.cuda.synchronize()
@@ -195,25 +234,65 @@ def run(args, torch) -> None:
         version rounds its scores to 16 bits, which is its error, not the kernel's."""
         return ops.mha_reference(q.float(), k.float(), v.float(), **kw)
 
+    def expected_variant(dtype, hd) -> str:
+        if dtype == torch.float32:
+            return "scalar"
+        return "sm90_wgmma" if hd in SM90_HEAD_DIMS else "mma_sync"
+
+    def flash_case(case, dtype, tol, scale=1.0, softcap=0.0) -> dict:
+        """One checked call; records the variant it launched and fails if that is
+        not the one the split by shape names."""
+        q, k, v = flash_inputs(case, dtype, scale)
+        kw = dict(causal=case[6], window=case[7], softcap=softcap)
+        before = ops.flash_launches_by_variant()
+        got = ops.flash_attention(q, k, v, **kw)
+        after = ops.flash_launches_by_variant()
+        ran = [key for key in after if after[key] != before[key]]
+        want_variant = expected_variant(dtype, case[5])
+        if ran != [want_variant] or flash_mod.variant(dtype, case[5]) != want_variant:
+            fail(f"flash {case} {dtype}: launched {ran}, expected [{want_variant!r}]")
+        name = f"flash {case} {dtype}" + (f" softcap {softcap:g}" if softcap else "")
+        err = compare(name, got, truth(q, k, v, **kw), tol)
+        return {"case": list(case) + ([f"softcap {softcap:g}"] if softcap else []),
+                "dtype": str(dtype), "variant": ran[0] if len(ran) == 1 else ran,
+                "max_abs_err": err, "tol": tol}
+
     flash_cases = []
     for dtype, tol in ((torch.float32, TOL_FLASH_FP32),
                        (torch.bfloat16, TOL_16BIT), (torch.float16, TOL_16BIT)):
-        for case in FLASH_CASES:
-            q, k, v = flash_inputs(case, dtype)
-            kw = dict(causal=case[6], window=case[7])
-            err = compare(f"flash {case} {dtype}", ops.flash_attention(q, k, v, **kw),
-                          truth(q, k, v, **kw), tol)
-            flash_cases.append({"case": list(case), "dtype": str(dtype),
-                                "max_abs_err": err, "tol": tol})
-        # softcap 20 on scores scaled by 3 x 3, as the reference's test has it
-        case = (1, 64, 64, 2, 2, 32, True, 0)
-        q, k, v = flash_inputs(case, dtype, scale=3.0)
+        for case in FLASH_CASES + FLASH_TILE_EDGE_CASES:
+            flash_cases.append(flash_case(case, dtype, tol))
         stol = TOL_FLASH_SOFTCAP if dtype == torch.float32 else TOL_16BIT
-        err = compare(f"flash softcap {dtype}",
-                      ops.flash_attention(q, k, v, causal=True, softcap=20.0),
-                      truth(q, k, v, causal=True, softcap=20.0), stol)
-        flash_cases.append({"case": list(case) + ["softcap 20"], "dtype": str(dtype),
-                            "max_abs_err": err, "tol": stol})
+        for case in FLASH_SOFTCAP_CASES:
+            flash_cases.append(flash_case(case, dtype, stol, scale=3.0, softcap=20.0))
+
+    # A call the wgmma kernel cannot take must raise, never run another variant:
+    # q one element past a 16-byte boundary (the wrapper refuses it first, so the
+    # C launcher is called directly) cannot be described by a tensor map.
+    case = FLASH_TILE_EDGE_CASES[0]
+    q, k, v = flash_inputs(case, torch.bfloat16)
+    q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+    q_off.copy_(q)
+    o = torch.full_like(q, float("nan"))
+    torch.cuda.synchronize()
+    lib = _build.load()
+    code = lib.repro_flash_attention_fwd(
+        q_off.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), case[0], case[1],
+        case[2], case[3], case[4], case[5], *q_off.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], 1, 0, 0.0, _build.DTYPE_CODES[torch.bfloat16],
+        0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    try:
+        _build.check(code, "flash_attention")
+        raised = ""
+    except RuntimeError as exc:
+        raised = str(exc)
+    if code != -3 or not raised or not bool(torch.isnan(o).all()):
+        fail(f"misaligned q: launcher returned {code} (want -3, a refusal), "
+             f"raised {raised!r}, output touched: {not bool(torch.isnan(o).all())}")
+    refusal = {"case": list(case), "dtype": "torch.bfloat16", "q_offset_bytes": 2,
+               "code": code, "raised": raised}
+    del q, k, v, q_off, o
 
     rms_cases = []
     for dtype, tol in ((torch.float32, TOL_RMSNORM_FP32),
@@ -245,11 +324,9 @@ def run(args, torch) -> None:
         return int(m.sum())
 
     main_case = (B_REQ, S_REQ, S_REQ, H, KV, hd, cfg.causal, 0)
+    main_entry = flash_case(main_case, bf16, TOL_16BIT)
+    flash_err = main_entry["max_abs_err"]
     q, k, v = flash_inputs(main_case, bf16)
-    want = truth(q, k, v, causal=cfg.causal)
-    flash_err = compare("flash main-path shape bf16",
-                        ops.flash_attention(q, k, v, causal=cfg.causal), want, TOL_16BIT)
-    del want
     flash_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=cfg.causal), 20)
     flash_plain_ms = time_ms(lambda: ops.mha_reference(q, k, v, causal=cfg.causal), 3, 1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -270,13 +347,8 @@ def run(args, torch) -> None:
     flash_bound_by = max(flash_bounds, key=flash_bounds.get)
 
     ragged = (1, S_REQ + 1, S_REQ + 1, H, KV, hd, cfg.causal, 0)
-    q2, k2, v2 = flash_inputs(ragged, bf16)
-    err = compare("flash ragged S=2049 bf16",
-                  ops.flash_attention(q2, k2, v2, causal=cfg.causal),
-                  truth(q2, k2, v2, causal=cfg.causal), TOL_16BIT)
-    flash_cases.append({"case": list(ragged), "dtype": str(bf16),
-                        "max_abs_err": err, "tol": TOL_16BIT})
-    del q, k, v, qt, kt, vt, q2, k2, v2
+    flash_cases += [main_entry, flash_case(ragged, bf16, TOL_16BIT)]
+    del q, k, v, qt, kt, vt
 
     rms_shapes = {}
     for rows in (B_REQ * S_REQ, B_REQ):
@@ -295,6 +367,11 @@ def run(args, torch) -> None:
             "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps), iters),
             "bound_ms": max(bounds.values()),
             "bound_by": max(bounds, key=bounds.get)}
+        if rows == B_REQ:
+            # the same calls replayed from a CUDA graph: the device's share of a call
+            # without the host's launch path (the wrapper's share is the difference)
+            rms_shapes[rows]["graph_ms"] = graph_ms(
+                lambda: ops.rmsnorm(x, w, eps=cfg.norm_eps), 200)
         del x, w
     torch.cuda.empty_cache()
 
@@ -310,7 +387,7 @@ def run(args, torch) -> None:
             "decode_shape": rms_shapes[B_REQ]},
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention.py:155",
             "launches": 0, "dtype": "bfloat16",
             "shape": {"q": [B_REQ, S_REQ, H, hd], "kv": [B_REQ, S_REQ, KV, hd],
@@ -320,13 +397,14 @@ def run(args, torch) -> None:
             "bound_ms": max(flash_bounds.values()), "bound_by": flash_bound_by,
             "library_ms": flash_lib_ms,
             "tflops": flash_flops / (flash_ms * 1e-3) / 1e12,
+            "variant": main_entry["variant"], "launches_by_variant": {},
             "worst_err_all_cases": max(c["max_abs_err"] for c in flash_cases)},
     }
     report["kernels_checked"] = {
         "phase": "kernels", "ok": not FAILURES,
         "tolerances": {"flash_fp32": TOL_FLASH_FP32, "flash_softcap_fp32": TOL_FLASH_SOFTCAP,
                        "rmsnorm_fp32": TOL_RMSNORM_FP32, "16bit": TOL_16BIT},
-        "flash_cases": flash_cases, "rmsnorm_cases": rms_cases,
+        "flash_cases": flash_cases, "flash_refusal": refusal, "rmsnorm_cases": rms_cases,
         "kernels": list(kernels.values())}
     emit(report["kernels_checked"])
     stop_if_failed("kernels")
@@ -401,9 +479,13 @@ def run(args, torch) -> None:
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         counts_prefill = ops.launch_counts()
+        variants_prefill = ops.flash_launches_by_variant()
         want_prefill = {"rmsnorm": 2 * L_ + 1, "flash_attention": L_}
         if counts_prefill != want_prefill:
             fail(f"prefill launched {counts_prefill}, expected {want_prefill}")
+        if variants_prefill["sm90_wgmma"] != L_ or sum(variants_prefill.values()) != L_:
+            fail(f"prefill flash launches by variant {variants_prefill}: all {L_} "
+                 "must be the wgmma kernel")
         if tuple(logits.shape) != (B_REQ, cfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail("prefill logits have the wrong shape or are not finite")
         cache = right_size(stacked, S_REQ, S_REQ + CACHE_EXTRA)
@@ -425,6 +507,7 @@ def run(args, torch) -> None:
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / GEN_STEPS
         counts = ops.launch_counts()
+        kernels["flash_attention"]["launches_by_variant"] = ops.flash_launches_by_variant()
         peak_bytes = torch.cuda.max_memory_allocated()
         if not bool(torch.isfinite(logits).all()):
             fail("decode logits are not finite")
@@ -465,7 +548,9 @@ def run(args, torch) -> None:
             "decode_ms_per_step": decode_ms,
             "decode_tokens_per_s": B_REQ / (decode_ms * 1e-3),
             "peak_memory_bytes": peak_bytes,
-            "launches_prefill": counts_prefill, "launches_total": counts,
+            "launches_prefill": counts_prefill,
+            "flash_launches_prefill_by_variant": variants_prefill,
+            "launches_total": counts,
             "agreement": {"tokens": n, "max_abs_diff": diff, "logit_std": spread,
                           "tol": agree_tol},
             "generated_ids_request0": ids[0].tolist()}
@@ -479,7 +564,8 @@ def run(args, torch) -> None:
         sys.exit(4)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype", "tol")
-    kernels_line = {"kernels": [{key: kern[key] for key in keys}
+    keys += ("variant", "launches_by_variant")
+    kernels_line = {"kernels": [{key: kern[key] for key in keys if key in kern}
                                 for kern in kernels.values()]}
     final = {"ok": True, "device": {"platform": "gpu",
                                     "kind": torch.cuda.get_device_name(0),

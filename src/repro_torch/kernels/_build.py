@@ -10,7 +10,6 @@ and the objects are linked into one ``.so``.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -97,6 +96,36 @@ def _build(target: Path) -> None:
                       log="\n".join(log))
 
 
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+
+
+class RmsnormCall(ctypes.Structure):
+    """``struct RmsnormCall`` of ``csrc/rmsnorm.cu``: one launch's arguments."""
+    _fields_ = [("x", _P), ("w", _P), ("y", _P), ("stream", _P), ("rows", _I),
+                ("d", _I), ("eps", _F), ("x_dtype", _I), ("w_dtype", _I),
+                ("device", _I)]
+
+
+#: the library's C interface, name -> (restype, argtypes); ``load()`` binds it and
+#: a CPU test holds it against the ``extern "C"`` declarations in ``csrc/``
+#: (a pointer to a struct is a ``c_void_p`` here: the address of a ``RmsnormCall``)
+SIGNATURES = {
+    "repro_rmsnorm_fwd": (_I, [_P]),
+    "repro_flash_attention_fwd": (
+        _I, [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _I, _I, _P]),
+    "repro_flash_attention_variant": (_I, [_I, _I]),
+    "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
+
+#: what the launchers' negative return codes mean
+REFUSALS = {
+    -1: "head_dim not compiled in",
+    -2: "unsupported element type",
+    -3: "a TMA tensor map could not be encoded for these tensors",
+    -4: "the driver's cuTensorMapEncodeTiled is unavailable",
+}
+
+
 def load() -> ctypes.CDLL:
     """The kernels' library, built first if this source tree has not built it."""
     global _lib
@@ -107,25 +136,11 @@ def load() -> ctypes.CDLL:
     if not target.exists():
         _build(target)
     lib = ctypes.CDLL(str(target))
-    p, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_longlong)
-    lib.repro_rmsnorm_fwd.argtypes = [p, p, p, i, i, f, i, i, p]
-    lib.repro_rmsnorm_fwd.restype = i
-    lib.repro_flash_attention_fwd.argtypes = (
-        [p, p, p, p] + [i] * 6 + [ll] * 12 + [i, i, f, i, p])
-    lib.repro_flash_attention_fwd.restype = i
-    lib.repro_cuda_error_string.argtypes = [i]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
     _lib = lib
     return lib
-
-
-def on_device(device):
-    """Context in which a launch goes to ``device``: the CUDA runtime launches
-    on the current device, so switch to the tensor's only if it is another."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
 
 
 def check(code: int, what: str) -> None:
@@ -135,4 +150,5 @@ def check(code: int, what: str) -> None:
     if code > 0:
         msg = load().repro_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
-    raise RuntimeError(f"{what}: launcher refused the call (code {code})")
+    raise RuntimeError(f"{what}: launcher refused the call (code {code}: "
+                       f"{REFUSALS.get(code, 'unknown')})")

@@ -7,17 +7,23 @@
 // (applied whether or not causal is set), fp32 (acc, m, l), p forced to 0 where
 // s <= -5e29, result acc / max(l, 1e-30).  Contract: Sq <= Skv.
 //
+// The C entry point below picks one of three kernels by type and head_dim (the
+// rule is flash::variant_for in flash_attention.cuh; it is a split by shape, not a
+// fallback): bf16/fp16 at head_dim 64 and 128 -- the serving path's shapes -- take
+// the TMA + wgmma kernel of flash_attention_sm90.cu; bf16/fp16 at head_dim 16, 32
+// and 256 the mma.sync kernel of this file; float32 the scalar kernel of this file.
+//
 // Bound on this card: operations.  At the prefill shape (S = 2048, hd = 128) the
 // kernel does ~S*hd/2 flops per byte of q/k/v/o it must move, well above the ~295
 // flop/byte ridge, so the S x S score matrix must never reach device memory and
-// the two products must run on the tensor cores.  What the design does:
+// the two products must run on the tensor cores.  What the mma.sync design does:
 //   * one block per (batch, q-head, 64-row q tile); the sequential kv grid axis of
 //     the TPU kernel is the loop inside the block, and (acc, m, l) stay in
 //     registers for the whole loop;
-//   * 16-bit inputs: both products are mma.sync m16n8k16 with fp32 accumulation,
-//     one warp per 16 query rows; the score fragment is re-packed in registers as
-//     the A operand of p*v, so p never touches shared memory; K and V tiles are
-//     staged through padded shared memory (V fragments by ldmatrix.trans);
+//   * both products are mma.sync m16n8k16 with fp32 accumulation, one warp per 16
+//     query rows; the score fragment is re-packed in registers as the A operand of
+//     p*v, so p never touches shared memory; K and V tiles are staged through
+//     padded shared memory (V fragments by ldmatrix.trans);
 //   * the K/V tiles are double-buffered: cp.async fetches tile i+1 into the
 //     second stage while tile i is computed, so global-memory latency is hidden
 //     behind the products; for head_dim <= 128 the Q fragments are read from
@@ -28,58 +34,25 @@
 //     so no divisibility of Sq or Skv is required;
 //   * GQA is pointer arithmetic: head h reads kv head h / (H / KV) through the
 //     strides it is given; K/V are never repeated or transposed in memory.
-// fp32 inputs take a scalar-FMA kernel (a warp per query row); it exists for the
-// tight-tolerance comparison with the plain version, not for speed.
-// Not done yet, and what a faster version would add: 32 query rows per warp (each
-// warp still reads the whole K and V tile from shared memory for 16 rows),
-// ldmatrix for the Q/K fragments, TMA instead of cp.async, and wgmma.
+// It is latency-bound inside the warp (PERF.md), which is why the serving
+// shapes moved to wgmma; head_dim 256 stays here until the wgmma kernel gets a
+// shared-memory budget of its own for it.  fp32 inputs take a scalar-FMA kernel (a
+// warp per query row); it exists for the tight-tolerance comparison with the plain
+// version, not for speed.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_attention.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int B, Sq, Skv, H, KV;
-  // strides in elements of (batch, sequence, head); the head_dim stride is 1
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  long long o_sb, o_ss, o_sh;
-  int causal, window;
-  float softcap, scale;
-};
-
-// Range of kv positions that a tile of query rows [q0, q0 + rows) can see, as
-// [lo, hi) with lo rounded down to a multiple of `bn`.
-__device__ __forceinline__ void kv_range(const Params& p, int q0, int rows, int bn, int& lo,
-                                         int& hi) {
-  const int offset = p.Skv - p.Sq;
-  const int rows_end = min(q0 + rows, p.Sq);
-  hi = p.causal ? min(p.Skv, rows_end + offset) : p.Skv;
-  lo = 0;
-  if (p.window > 0) {
-    lo = max(0, q0 + offset - p.window + 1);
-    lo = (lo / bn) * bn;
-  }
-}
-
-__device__ __forceinline__ float masked_score(const Params& p, float raw, int qpos, int kpos) {
-  float x = raw * p.scale;
-  if (p.softcap != 0.f) x = tanhf(x / p.softcap) * p.softcap;
-  bool ok = kpos < p.Skv;
-  if (p.causal) ok = ok && (qpos >= kpos);
-  if (p.window > 0) ok = ok && (qpos - kpos < p.window);
-  return ok ? x : kNegInf;
-}
+using flash::kNegInf;
+using flash::kv_range;
+using flash::masked_score;
+using flash::Params;
 
 // ---------------------------------------------------------------------------
 // 16-bit inputs: tensor cores through mma.sync.m16n8k16
@@ -360,8 +333,6 @@ int dispatch_mma(const Params& p, int hd, cudaStream_t st) {
   switch (hd) {
     case 16: return (int)launch_mma<T, 16, 64, 64>(p, st);
     case 32: return (int)launch_mma<T, 32, 64, 64>(p, st);
-    case 64: return (int)launch_mma<T, 64, 64, 64>(p, st);
-    case 128: return (int)launch_mma<T, 128, 64, 64>(p, st);
     case 256: return (int)launch_mma<T, 256, 64, 32>(p, st);
     default: return -1;
   }
@@ -487,16 +458,24 @@ int dispatch_scalar(const Params& p, int hd, cudaStream_t st) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and o share one type).
+// The kernel a call of that type and head_dim launches: 0 scalar, 1 mma.sync,
+// 2 TMA + wgmma (flash_attention_sm90.cu); -1 if none is compiled in.
+extern "C" int repro_flash_attention_variant(int hd, int dtype) {
+  return flash::variant_for(hd, dtype);
+}
+
 // Strides are in elements; the head_dim stride must be 1 and, for 16-bit types,
 // every row must start on a 16-byte boundary (the Python wrapper checks both).
-// Returns 0, a cudaError_t (> 0) from the launch, -1 for a head_dim that is not
-// compiled in, -2 for an unknown type.
+// Launches on `stream` of CUDA device `device`.  Returns 0, a cudaError_t (> 0)
+// from the launch, -1 for a head_dim that is not compiled in, -2 for an unknown
+// type, -3 / -4 when the TMA kernel's tensor maps cannot be made (see
+// flash_attention.cuh).  No variant ever stands in for another.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H, int KV,
     int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, float softcap, int dtype,
-    void* stream) {
+    int device, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -508,11 +487,14 @@ extern "C" int repro_flash_attention_fwd(
   p.causal = causal; p.window = window;
   p.softcap = softcap;
   p.scale = 1.0f / sqrtf((float)hd);
+  flash::DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_scalar(p, hd, st);
-    case 1: return dispatch_mma<__nv_bfloat16>(p, hd, st);
-    case 2: return dispatch_mma<__half>(p, hd, st);
-    default: return -2;
+  switch (flash::variant_for(hd, dtype)) {
+    case flash::kScalar: return dispatch_scalar(p, hd, st);
+    case flash::kMmaSync:
+      return dtype == 1 ? dispatch_mma<__nv_bfloat16>(p, hd, st) : dispatch_mma<__half>(p, hd, st);
+    case flash::kSm90Wgmma: return flash::launch_sm90(p, hd, dtype, st);
+    default: return (dtype < 0 || dtype > 2) ? -2 : -1;
   }
 }

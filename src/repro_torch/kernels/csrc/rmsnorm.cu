@@ -18,6 +18,10 @@
 //     shared memory -> every thread; the second pass re-reads the row, which
 //     is a few KB and still sits in L1.
 // Nothing is carried between rows, so the grid is simply the rows.
+// At the decode shape (4 rows of 3584) the kernel runs ~2 us and the call is bound
+// by the host's launch path instead, which decode pays 57 times a step: the C entry
+// takes its arguments as one block (RmsnormCall) and the device and raw stream as
+// plain values, so the Python wrapper builds no objects for them.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -150,18 +154,54 @@ int launch_w(const void* x, const void* w, void* y, int rows, int d, float eps, 
   return -2;
 }
 
+// Makes `dev` the current device for the lifetime of the guard when it is not
+// already (the runtime launches on the current device).
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceGuard(int dev) {
+    int cur = 0;
+    err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != dev) {
+      err = cudaSetDevice(dev);
+      if (err == cudaSuccess) prev = cur;
+    }
+  }
+  ~DeviceGuard() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace
 
+// One call's arguments, passed as one block: at the decode shape the kernel runs
+// for ~2 us, and converting ten separate ctypes arguments cost about as much.
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  w is in x's type or float32.
+// The kernel goes to `stream` of CUDA device `device` (made current only if it is not).
+struct RmsnormCall {
+  const void* x;
+  const void* w;
+  void* y;
+  void* stream;
+  int rows;
+  int d;
+  float eps;
+  int x_dtype;
+  int w_dtype;
+  int device;
+};
+
 // Returns 0, a cudaError_t (> 0) from the launch, or -2 for a type pair it does not take.
-extern "C" int repro_rmsnorm_fwd(const void* x, const void* w, void* y, int rows, int d,
-                                 float eps, int x_dtype, int w_dtype, void* stream) {
-  if (rows <= 0 || d <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (x_dtype) {
-    case 0: return launch_w<float>(x, w, y, rows, d, eps, x_dtype, w_dtype, st);
-    case 1: return launch_w<__nv_bfloat16>(x, w, y, rows, d, eps, x_dtype, w_dtype, st);
-    case 2: return launch_w<__half>(x, w, y, rows, d, eps, x_dtype, w_dtype, st);
+extern "C" int repro_rmsnorm_fwd(const RmsnormCall* c) {
+  if (c->rows <= 0 || c->d <= 0) return 0;
+  DeviceGuard guard(c->device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  cudaStream_t st = static_cast<cudaStream_t>(c->stream);
+  switch (c->x_dtype) {
+    case 0: return launch_w<float>(c->x, c->w, c->y, c->rows, c->d, c->eps, 0, c->w_dtype, st);
+    case 1:
+      return launch_w<__nv_bfloat16>(c->x, c->w, c->y, c->rows, c->d, c->eps, 1, c->w_dtype, st);
+    case 2: return launch_w<__half>(c->x, c->w, c->y, c->rows, c->d, c->eps, 2, c->w_dtype, st);
     default: return -2;
   }
 }

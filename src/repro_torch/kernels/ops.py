@@ -25,6 +25,14 @@ def launch_counts() -> dict[str, int]:
     return {name: mod.launches for name, mod in _COUNTED.items()}
 
 
+def flash_launches_by_variant() -> dict[str, int]:
+    """Flash-attention launches per kernel variant (``scalar``, ``mma_sync``,
+    ``sm90_wgmma``) since the last :func:`reset_launch_counts`."""
+    return dict(_flash_mod.launches_by_variant)
+
+
 def reset_launch_counts() -> None:
     for mod in _COUNTED.values():
         mod.launches = 0
+    for key in _flash_mod.launches_by_variant:
+        _flash_mod.launches_by_variant[key] = 0

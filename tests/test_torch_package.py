@@ -88,10 +88,16 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     assert '"ok"' not in out.stdout
 
 
-def test_kernel_sources_name_what_they_replace():
-    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    for name, replaced in (("rmsnorm.cu", "src/repro/kernels/rmsnorm.py"),
-                           ("flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py")):
-        text = (csrc / name).read_text()
-        assert replaced in text and "Bound on this card" in text
+KERNEL_SOURCES = sorted(p for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()
+                        if p.suffix in (".cu", ".cuh"))
+REPLACED = ("src/repro/kernels/rmsnorm.py", "src/repro/kernels/flash_attention.py")
+
+
+@pytest.mark.parametrize("path", KERNEL_SOURCES, ids=_rel)
+def test_kernel_sources_name_what_they_replace(path):
+    """Every CUDA source's header note names the TPU kernel it replaces (file and
+    function) and what bounds it on this card."""
+    head = path.read_text().split("#include")[0]
+    assert any(r in head for r in REPLACED), f"{_rel(path)} names no TPU kernel"
+    assert "_kernel" in head, f"{_rel(path)} names no TPU kernel function"
+    assert "Bound on this card" in head
