@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py                 # everything, as below
-    python3 chip_smoke.py --layers 4      # cut the model's depth (never its width)
-    python3 chip_smoke.py --skip-serve    # build and check the kernels only
-    python3 chip_smoke.py --out DIR       # also write report.json and nvcc's log there
+    python3 chip_smoke.py --layers 4      # cut the served model's depth (never its width)
+    python3 chip_smoke.py --skip-serve --skip-train   # build and check the kernels only
+    python3 chip_smoke.py --out DIR       # also write report.json(l) and nvcc's log there
 
 What it does, one JSON line per phase on standard output:
 
@@ -13,19 +13,27 @@ What it does, one JSON line per phase on standard output:
            with nvcc (first use of the library);
   kernels  holds each hand-written kernel against its plain PyTorch version on the
            card, at the reference's test cases and cases across the wgmma kernel's
-           tile edges (fp32, bf16, fp16) and at the shapes the serving path gives
-           it, records which flash variant each case launched, shows that a call
-           the wgmma kernel cannot take raises instead of running another variant,
-           and times kernel, plain version, one library call (a yardstick only;
-           the port never calls it) and the card's bound; RMSNorm at the decode
-           shape also device-only, 200 calls replayed from a CUDA graph;
-  small    a reduced fp32 model: prefill + decode on the card (through the
-           kernels) against the same weights on the CPU (plain versions);
+           tile edges (fp32, bf16, fp16) and at the shapes the serving and training
+           paths give it: the forwards, the attention forward's lse, and the two
+           backwards (dq, dk, dv; dx, dw); records which flash variant each case
+           launched, shows that a call the wgmma kernel cannot take raises instead
+           of running another variant, and times kernel, plain version, one library
+           call (a yardstick only; the port never calls it) and the card's bound;
+           RMSNorm at the decode shape also device-only, from a CUDA graph;
+  small    a reduced fp32 model on the card (through the kernels) against the same
+           weights on the CPU (plain versions): prefill + decode, then three train
+           steps (loss, grad norm, every parameter, exact launch counts per step)
+           and a checkpoint round trip of the card's train state, bit for bit;
   serve    qwen2-7b at full width and depth in bf16, random weights from a seed:
            4 requests of 2048 tokens through make_prefill_step, 16 greedy steps
            through make_serve_step, with the kernels' launch counts set to 0 just
            before and read just after (every prefill flash launch must be the
-           wgmma variant); then the prefill/decode agreement check.
+           wgmma variant); then the prefill/decode agreement check;
+  train    (the serve model freed first) qwen2-7b at full width, 8 of 28 layers,
+           bf16: the Trainer over SyntheticLM batches of 2 x 4096 tokens for 6
+           steps, counts at 0 just before; exact launches of every kernel, forward
+           and backward, per step; finite losses, the step-0 loss where a random
+           init puts it; ms per step, tokens/s, MFU and peak memory.
 
 Then the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.  Any failed check ends the run with a non-zero exit
@@ -38,8 +46,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -86,12 +96,32 @@ RMSNORM_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64)]
 #        0.008-0.016); it is held against the plain version run on the same values
 #        in fp32.
 TOL_FLASH_FP32, TOL_FLASH_SOFTCAP, TOL_16BIT, TOL_RMSNORM_FP32 = 2e-5, 1e-4, 2e-2, 1e-5
+# The backwards and the forward's lse are held as a share of the reference's largest
+# magnitude (a gradient's small entries are differences of large terms):
+#  fp32: 1e-4 for attention -- sums over up to 4,096 keys in another order and
+#        expf / tanhf against torch's; 1e-5 for RMSNorm (sums over one row, and dw
+#        over the rows in a fixed other order);
+#  16-bit: 2e-2 -- the kernels round p and ds to the input type for the products
+#        and D is taken from the 16-bit output, against the plain version run in fp32
+#        on the same values;
+#  lse: 1e-4 in fp32 and 1e-3 in 16 bits (the wgmma kernel's exponentials are the
+#        approximate ex2 instruction).
+TOL_BWD_FP32, TOL_RMSNORM_BWD_FP32, TOL_LSE_FP32, TOL_LSE_16BIT = 1e-4, 1e-5, 1e-4, 1e-3
 
 FAILURES: list[str] = []
 
 
+#: where emit() also appends its lines (--out): the end of a long standard output
+#: may be all a caller gets back
+REPORT_LINES: list[Path] = []
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    for path in REPORT_LINES:
+        with path.open("a") as f:
+            f.write(line + "\n")
 
 
 def fail(msg: str) -> None:
@@ -111,6 +141,7 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the served model's depth to this many layers")
     ap.add_argument("--skip-serve", action="store_true")
+    ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--out", type=str, default="")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -122,6 +153,10 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device; this script measures on the "
                  "card only")
     sys.path.insert(0, str(ROOT / "src"))
+    if args.out:
+        Path(args.out).mkdir(parents=True, exist_ok=True)
+        REPORT_LINES.append(Path(args.out) / "report.jsonl")
+        REPORT_LINES[0].write_text("")
     run(args, torch)
 
 
@@ -131,9 +166,17 @@ def run(args, torch) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import rmsnorm as rms_mod
+    from repro_torch.checkpoint.store import restore as restore_state
+    from repro_torch.checkpoint.store import save as save_state
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.convert import (export_jax_train_state,
+                                            jax_train_state_like, load_jax_train_state)
     from repro_torch.models.lm import LM
-    from repro_torch.parallel.trainstep import (make_prefill_step,
-                                                make_serve_step)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.trainstep import (init_train_state, make_prefill_step,
+                                                make_serve_step, make_train_step)
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 checks need fp32
@@ -163,7 +206,6 @@ def run(args, torch) -> None:
         "sources": [str(s.relative_to(ROOT)) for s in _build.sources()]}
     emit(report["build"])
     if args.out:
-        Path(args.out).mkdir(parents=True, exist_ok=True)
         (Path(args.out) / "nvcc.log").write_text(_build.build_info["log"])
 
     # ------------------------------------------------------------ helpers
@@ -201,6 +243,18 @@ def run(args, torch) -> None:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / (replays * calls)
+
+    def compare_share(name: str, got, want, tol: float) -> float:
+        """Max abs error as a share of want's largest magnitude; a failure above tol."""
+        torch.cuda.synchronize()
+        g, w = got.float(), want.float()
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{name}: bad shape {tuple(g.shape)} or non-finite values")
+            return float("inf")
+        share = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if not share <= tol:
+            fail(f"{name}: max abs err {share:.3e} of the largest magnitude exceeds {tol:g}")
+        return share
 
     def compare(name: str, got, want, tol: float) -> float:
         """Max abs error; records a failure unless |got-want| <= tol + tol*|want|."""
@@ -266,6 +320,43 @@ def run(args, torch) -> None:
         for case in FLASH_SOFTCAP_CASES:
             flash_cases.append(flash_case(case, dtype, stol, scale=3.0, softcap=20.0))
 
+    # Backward kernels, and the forward's lse, against the plain versions held in fp32
+    def flash_bwd_case(case, dtype, scale=1.0, softcap=0.0) -> dict:
+        fp32 = dtype == torch.float32
+        tol, lse_tol = (TOL_BWD_FP32, TOL_LSE_FP32) if fp32 else (TOL_16BIT, TOL_LSE_16BIT)
+        q, k, v = flash_inputs(case, dtype, scale)
+        do = randn(q.shape, dtype)
+        causal, window = case[6], case[7]
+        o, lse = flash_mod.launch_forward(q, k, v, causal, window, softcap, with_lse=True)
+        before = ops.flash_bwd_launches_by_variant()
+        grads = flash_mod.launch_backward(q, k, v, o, lse, do, causal, window, softcap)
+        after = ops.flash_bwd_launches_by_variant()
+        ran = [key for key in after if after[key] != before[key]]
+        want_variant = "scalar" if fp32 else "mma_sync"
+        if ran != [want_variant]:
+            fail(f"flash backward {case} {dtype}: launched {ran}, expected [{want_variant!r}]")
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        o_ref = ops.mha_reference(qf, kf, vf, **kw)
+        lse_ref = ops.flash_attention_lse_reference(qf, kf, **kw)
+        want = ops.flash_attention_bwd_reference(qf, kf, vf, o_ref, lse_ref, do.float(), **kw)
+        name = f"flash backward {case} {dtype}" + (f" softcap {softcap:g}" if softcap else "")
+        errs = {"lse": compare_share(name + " lse", lse, lse_ref, lse_tol)}
+        for gname, got, ref_ in zip(("dq", "dk", "dv"), grads, want):
+            errs[gname] = compare_share(f"{name} {gname}", got, ref_, tol)
+        worst = max(float((got.float() - ref_).abs().max()) for got, ref_ in zip(grads, want))
+        del q, k, v, do, o, lse, grads, want, o_ref, lse_ref
+        return {"case": list(case) + ([f"softcap {softcap:g}"] if softcap else []),
+                "dtype": str(dtype), "variant": ran[0] if len(ran) == 1 else ran,
+                "max_err_share": errs, "max_abs_err": worst, "tol": tol, "lse_tol": lse_tol}
+
+    flash_bwd_cases = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for case in FLASH_CASES + FLASH_TILE_EDGE_CASES:
+            flash_bwd_cases.append(flash_bwd_case(case, dtype))
+        for case in FLASH_SOFTCAP_CASES:
+            flash_bwd_cases.append(flash_bwd_case(case, dtype, scale=3.0, softcap=20.0))
+
     # A call the wgmma kernel cannot take must raise, never run another variant:
     # q one element past a 16-byte boundary (the wrapper refuses it first, so the
     # C launcher is called directly) cannot be described by a tensor map.
@@ -277,7 +368,7 @@ def run(args, torch) -> None:
     torch.cuda.synchronize()
     lib = _build.load()
     code = lib.repro_flash_attention_fwd(
-        q_off.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), case[0], case[1],
+        q_off.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, case[0], case[1],
         case[2], case[3], case[4], case[5], *q_off.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], 1, 0, 0.0, _build.DTYPE_CODES[torch.bfloat16],
         0, torch.cuda.current_stream().cuda_stream)
@@ -307,9 +398,32 @@ def run(args, torch) -> None:
                                   "w_dtype": str(wdtype), "max_abs_err": err,
                                   "tol": tol})
 
+    rms_bwd_cases = []
+    for dtype, tol in ((torch.float32, TOL_RMSNORM_BWD_FP32),
+                       (torch.bfloat16, TOL_16BIT), (torch.float16, TOL_16BIT)):
+        for shape in RMSNORM_SHAPES + [(3, 3584), (5, 7, 100), (2, 1027), (8192, 3584)]:
+            for wdtype in {dtype, torch.float32}:
+                x = randn(shape, dtype)
+                w = randn(shape[-1:], wdtype, 0.1) + 1
+                dy = randn(shape, dtype)
+                dx, dw = rms_mod.launch_backward(
+                    x, w, dy, 1e-6, 0, _build.DTYPE_CODES[dtype], _build.DTYPE_CODES[wdtype])
+                dx_ref, dw_ref = ops.rmsnorm_bwd_reference(x.float(), w.float(), dy.float())
+                name = f"rmsnorm backward {shape} {dtype} w {wdtype}"
+                rms_bwd_cases.append({
+                    "shape": list(shape), "dtype": str(dtype), "w_dtype": str(wdtype),
+                    "max_err_share": {"dx": compare_share(name + " dx", dx, dx_ref, tol),
+                                      "dw": compare_share(name + " dw", dw, dw_ref, tol)},
+                    "max_abs_err": max(float((dx.float() - dx_ref).abs().max()),
+                                       float((dw.float() - dw_ref).abs().max())),
+                    "tol": tol})
+                del x, w, dy, dx, dw, dx_ref, dw_ref
+
     # the serving path's own shapes, bf16
     cfg = get_config("qwen2_7b")
     B_REQ, S_REQ, GEN_STEPS, CACHE_EXTRA = 4, 2048, 16, 32
+    B_TRAIN, S_TRAIN = 2, 4096   # TRAIN_4K's length; its global batch of 256 cut to 2
+    TRAIN_LAYERS = 8
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     bf16 = torch.bfloat16
 
@@ -350,6 +464,49 @@ def run(args, torch) -> None:
     flash_cases += [main_entry, flash_case(ragged, bf16, TOL_16BIT)]
     del q, k, v, qt, kt, vt
 
+    # the training path's attention shape, bf16: the backward checked and timed, the
+    # forward timed with and without lse
+    train_case = (B_TRAIN, S_TRAIN, S_TRAIN, H, KV, hd, cfg.causal, 0)
+    train_bwd_entry = flash_bwd_case(train_case, bf16)
+    flash_bwd_cases.append(train_bwd_entry)
+    torch.cuda.empty_cache()
+    q, k, v = flash_inputs(train_case, bf16)
+    do = randn(q.shape, bf16)
+    o, lse = flash_mod.launch_forward(q, k, v, cfg.causal, 0, 0.0, with_lse=True)
+    fwd_train = {
+        "ms_with_lse": time_ms(lambda: flash_mod.launch_forward(
+            q, k, v, cfg.causal, 0, 0.0, with_lse=True), 20),
+        "ms_without_lse": time_ms(lambda: flash_mod.launch_forward(
+            q, k, v, cfg.causal, 0, 0.0, with_lse=False), 20)}
+    bwd_ms = time_ms(lambda: flash_mod.launch_backward(
+        q, k, v, o, lse, do, cfg.causal, 0, 0.0), 10)
+    bwd_plain_ms = time_ms(lambda: ops.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=cfg.causal), 2, 1)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=cfg.causal,
+                                             enable_gqa=True)
+    except TypeError:   # an older torch without enable_gqa
+        out = F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(H // KV, dim=1), vt.repeat_interleave(H // KV, dim=1),
+            is_causal=cfg.causal)
+    bwd_lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                     retain_graph=True), 10)
+    pairs_train = visible_pairs(S_TRAIN, S_TRAIN, cfg.causal, 0) * B_TRAIN * H
+    bwd_flops = 10.0 * hd * pairs_train
+    bwd_bytes = 2.0 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * o.numel()) \
+        + 4.0 * lse.numel()
+    bwd_bounds = {"operations": bwd_flops / PEAK_TENSOR_16BIT_FLOPS * 1e3,
+                  "bytes": bwd_bytes / PEAK_BYTES_PER_S * 1e3}
+    fwd_train_flops = 4.0 * hd * pairs_train
+    fwd_train["bound_ms"] = max(fwd_train_flops / PEAK_TENSOR_16BIT_FLOPS * 1e3,
+                                2.0 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_PER_S
+                                * 1e3 + 4.0 * lse.numel() / PEAK_BYTES_PER_S * 1e3)
+    del q, k, v, do, o, lse, qt, kt, vt, dot, out
+    torch.cuda.empty_cache()
+
     rms_shapes = {}
     for rows in (B_REQ * S_REQ, B_REQ):
         x = randn((rows, d), bf16)
@@ -375,6 +532,31 @@ def run(args, torch) -> None:
         del x, w
     torch.cuda.empty_cache()
 
+    # RMSNorm backward at the training path's shape (2 x 4096 rows of d_model), bf16
+    rows = B_TRAIN * S_TRAIN
+    x, dy = randn((rows, d), bf16), randn((rows, d), bf16)
+    w = randn((d,), bf16, 0.1) + 1
+    bcodes = (0, _build.DTYPE_CODES[bf16], _build.DTYPE_CODES[bf16])
+    xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y_lib = F.rms_norm(xr, (d,), wr, cfg.norm_eps)
+    rms_bwd_bounds = {"bytes": 2.0 * (3 * x.numel() + 2 * w.numel()) / PEAK_BYTES_PER_S * 1e3,
+                      "operations": 10.0 * x.numel() / PEAK_FP32_FLOPS * 1e3}
+    rms_bwd_entry = {
+        "shape": [rows, d],
+        "ms": time_ms(lambda: rms_mod.launch_backward(x, w, dy, cfg.norm_eps, *bcodes), 50),
+        "plain_ms": time_ms(lambda: ops.rmsnorm_bwd_reference(x, w, dy, cfg.norm_eps), 20),
+        "library_ms": time_ms(lambda: torch.autograd.grad(y_lib, (xr, wr), dy,
+                                                          retain_graph=True), 50),
+        "bound_ms": max(rms_bwd_bounds.values()),
+        "bound_by": max(rms_bwd_bounds, key=rms_bwd_bounds.get)}
+    main_rms_bwd = next(
+        c for c in rms_bwd_cases
+        if c["shape"] == [rows, d] and c["dtype"] == str(bf16) and c["w_dtype"] == str(bf16))
+    rms_bwd_entry["max_abs_err"] = main_rms_bwd["max_abs_err"]
+    rms_bwd_entry["max_err_share"] = main_rms_bwd["max_err_share"]
+    del x, dy, w, xr, wr, y_lib
+    torch.cuda.empty_cache()
+
     kernels = {
         "rmsnorm": {
             "name": "rmsnorm", "route": "cuda",
@@ -398,13 +580,44 @@ def run(args, torch) -> None:
             "library_ms": flash_lib_ms,
             "tflops": flash_flops / (flash_ms * 1e-3) / 1e12,
             "variant": main_entry["variant"], "launches_by_variant": {},
-            "worst_err_all_cases": max(c["max_abs_err"] for c in flash_cases)},
+            "worst_err_all_cases": max(c["max_abs_err"] for c in flash_cases),
+            "train_shape": {"q": [B_TRAIN, S_TRAIN, H, hd], **fwd_train}},
+        "rmsnorm_bwd": {
+            "name": "rmsnorm_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+            "replaces": "src/repro/kernels/rmsnorm.py:38",
+            "launches": 0, "dtype": "bfloat16", **rms_bwd_entry,
+            "tol": TOL_16BIT, "err_is": "share of the largest magnitude (dx, dw)",
+            "worst_err_all_cases": max(max(c["max_err_share"].values())
+                                       for c in rms_bwd_cases)},
+        "flash_attention_bwd": {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:102",
+            "launches": 0, "dtype": "bfloat16",
+            "shape": {"q": [B_TRAIN, S_TRAIN, H, hd], "kv": [B_TRAIN, S_TRAIN, KV, hd],
+                      "causal": cfg.causal},
+            "max_abs_err": train_bwd_entry["max_abs_err"],
+            "max_err_share": train_bwd_entry["max_err_share"], "tol": TOL_16BIT,
+            "err_is": "share of the largest magnitude (lse, dq, dk, dv)",
+            "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+            "bound_ms": max(bwd_bounds.values()),
+            "bound_by": max(bwd_bounds, key=bwd_bounds.get),
+            "library_ms": bwd_lib_ms,
+            "tflops": bwd_flops / (bwd_ms * 1e-3) / 1e12,
+            "variant": train_bwd_entry["variant"], "launches_by_variant": {},
+            "worst_err_all_cases": max(max(c["max_err_share"].values())
+                                       for c in flash_bwd_cases)},
     }
     report["kernels_checked"] = {
         "phase": "kernels", "ok": not FAILURES,
         "tolerances": {"flash_fp32": TOL_FLASH_FP32, "flash_softcap_fp32": TOL_FLASH_SOFTCAP,
-                       "rmsnorm_fp32": TOL_RMSNORM_FP32, "16bit": TOL_16BIT},
+                       "rmsnorm_fp32": TOL_RMSNORM_FP32, "16bit": TOL_16BIT,
+                       "bwd_fp32_share": TOL_BWD_FP32,
+                       "rmsnorm_bwd_fp32_share": TOL_RMSNORM_BWD_FP32,
+                       "lse_fp32_share": TOL_LSE_FP32, "lse_16bit_share": TOL_LSE_16BIT},
         "flash_cases": flash_cases, "flash_refusal": refusal, "rmsnorm_cases": rms_cases,
+        "flash_bwd_cases": flash_bwd_cases, "rmsnorm_bwd_cases": rms_bwd_cases,
         "kernels": list(kernels.values())}
     emit(report["kernels_checked"])
     stop_if_failed("kernels")
@@ -436,13 +649,81 @@ def run(args, torch) -> None:
                         outs["gpu"], outs["cpu"], 1e-3)
     small_counts = ops.launch_counts()
     n_norms = 2 * small_cfg.n_layers + 1
-    if small_counts != {"rmsnorm": 9 * n_norms, "flash_attention": small_cfg.n_layers}:
+    if small_counts != {"rmsnorm": 9 * n_norms, "flash_attention": small_cfg.n_layers,
+                        "rmsnorm_bwd": 0, "flash_attention_bwd": 0}:
         fail(f"small model: unexpected launch counts {small_counts}")
+    del cpu_model, gpu_model
+
+    # Three train steps of the same reduced fp32 model on the card (kernels, forward
+    # and backward) against the CPU (plain versions), from the same weights and
+    # SyntheticLM batches: loss, grad_norm and every new parameter within 1e-3.  A
+    # peak lr of 1e-4: AdamW's first steps move a parameter by up to lr whatever the
+    # size of its gradient, so a gradient entry at rounding level may move it by lr
+    # on one device and not the other; 3 steps at <= 1e-4 stay inside the tolerance.
+    cpu_model = LM(small_cfg, device="cpu")
+    cpu_state = init_train_state(cpu_model, torch.Generator().manual_seed(args.seed))
+    gpu_model = LM(small_cfg, device=dev)
+    gpu_state = load_jax_train_state(gpu_model, export_jax_train_state(cpu_model, cpu_state))
+    small_opt = AdamWConfig(peak_lr=1e-4, warmup_steps=2, total_steps=10)
+    data = SyntheticLM(DataConfig(vocab=small_cfg.vocab, seq_len=64, global_batch=4,
+                                  seed=args.seed))
+    steps = {"cpu": make_train_step(cpu_model, small_opt, remat="none"),
+             "gpu": make_train_step(gpu_model, small_opt, remat="none")}
+    per_step = {"rmsnorm": 2 * small_cfg.n_layers + 1, "rmsnorm_bwd": 2 * small_cfg.n_layers + 1,
+                "flash_attention": small_cfg.n_layers,
+                "flash_attention_bwd": small_cfg.n_layers}
+    train_metrics = {"cpu": [], "gpu": []}
+    for i in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+        cpu_state, m_cpu = steps["cpu"](cpu_state, batch)
+        ops.reset_launch_counts()
+        gpu_state, m_gpu = steps["gpu"](gpu_state, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        moved = ops.launch_counts()
+        if moved != per_step or ops.flash_bwd_launches_by_variant()["scalar"] != \
+                small_cfg.n_layers:
+            fail(f"small train step {i}: launched {moved} "
+                 f"(backward by variant {ops.flash_bwd_launches_by_variant()}), "
+                 f"expected {per_step}, every backward on the scalar kernel")
+        for name, m in (("cpu", m_cpu), ("gpu", m_gpu)):
+            train_metrics[name].append({k: float(v) for k, v in m.items()})
+    for key in ("loss", "grad_norm"):
+        compare(f"small train: {key} card vs CPU",
+                torch.tensor([m[key] for m in train_metrics["gpu"]]),
+                torch.tensor([m[key] for m in train_metrics["cpu"]]), 1e-3)
+    param_err = max(compare(f"small train: parameter {name} card vs CPU",
+                            gpu_state["params"][name].detach().cpu(), p.detach(), 1e-3)
+                    for name, p in cpu_state["params"].items())
+
+    # the card's train state through a checkpoint and back, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        save_state(tmp, export_jax_train_state(gpu_model, gpu_state), step=3)
+        again = LM(small_cfg, device=dev)
+        tree, manifest = restore_state(tmp, jax_train_state_like(again))
+        restored = load_jax_train_state(again, tree)
+    same = (manifest["step"] == 3 and torch.equal(restored["opt"].step, gpu_state["opt"].step)
+            and all(torch.equal(restored[part][name], gpu_state[part][name])
+                    for part in ("params",) for name in gpu_state["params"])
+            and all(torch.equal(getattr(restored["opt"], mom)[name],
+                                getattr(gpu_state["opt"], mom)[name])
+                    for mom in ("m", "v") for name in gpu_state["params"]))
+    if not same:
+        fail("small train: the card's train state did not come back from a checkpoint "
+             "bit for bit")
     report["small"] = {"phase": "small", "config": small_cfg.name, "dtype": "float32",
-                       "max_abs_err": small_err, "tol": 1e-3, "launches": small_counts}
+                       "max_abs_err": small_err, "tol": 1e-3, "launches": small_counts,
+                       "train": {"steps": 3, "batch": [4, 64], "metrics": train_metrics,
+                                 "max_abs_err_params": param_err, "tol": 1e-3,
+                                 "launches_per_step": per_step,
+                                 "checkpoint_round_trip_bit_exact": same}}
     emit(report["small"])
     stop_if_failed("small")
-    del cpu_model, gpu_model
+    del cpu_model, gpu_model, again, cpu_state, gpu_state, restored, tree
+
+    # launches of each main path, counted from 0 just before it and read just after
+    path_counts: dict = {}
+    path_variants: dict = {}
+    path_bwd_variants: dict = {}
 
     # -------------------------------------------------------------- serve
     if not args.skip_serve:
@@ -480,7 +761,8 @@ def run(args, torch) -> None:
         prefill_ms = (time.perf_counter() - t0) * 1e3
         counts_prefill = ops.launch_counts()
         variants_prefill = ops.flash_launches_by_variant()
-        want_prefill = {"rmsnorm": 2 * L_ + 1, "flash_attention": L_}
+        want_prefill = {"rmsnorm": 2 * L_ + 1, "flash_attention": L_,
+                        "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
         if counts_prefill != want_prefill:
             fail(f"prefill launched {counts_prefill}, expected {want_prefill}")
         if variants_prefill["sm90_wgmma"] != L_ or sum(variants_prefill.values()) != L_:
@@ -500,21 +782,22 @@ def run(args, torch) -> None:
                 cache, {"tokens": tok, "pos": torch.full((B_REQ,), S_REQ + t, device=dev)})
             after = ops.launch_counts()
             moved = {key: after[key] - before[key] for key in after}
-            if moved != {"rmsnorm": 2 * L_ + 1, "flash_attention": 0}:
+            if moved != {"rmsnorm": 2 * L_ + 1, "flash_attention": 0,
+                         "rmsnorm_bwd": 0, "flash_attention_bwd": 0}:
                 fail(f"decode step {t} launched {moved}")
             tok = logits.argmax(-1, keepdim=True)
             generated.append(tok)
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / GEN_STEPS
         counts = ops.launch_counts()
-        kernels["flash_attention"]["launches_by_variant"] = ops.flash_launches_by_variant()
+        path_counts["serve"] = counts
+        path_variants["serve"] = ops.flash_launches_by_variant()
         peak_bytes = torch.cuda.max_memory_allocated()
         if not bool(torch.isfinite(logits).all()):
             fail("decode logits are not finite")
-        for name in kernels:
-            kernels[name]["launches"] = counts[name]
+        for name in ("rmsnorm", "flash_attention"):
             if counts[name] == 0:
-                fail(f"kernel {name} was not launched on the main path")
+                fail(f"kernel {name} was not launched on the serving path")
         ids = torch.cat(generated, dim=1)
         del cache, logits
 
@@ -556,15 +839,100 @@ def run(args, torch) -> None:
             "generated_ids_request0": ids[0].tolist()}
         emit(report["serve"])
         stop_if_failed("serve")
+        del model, prefill_step, serve_step, full_logits, step_logits, stacked, cache, requests
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- train
+    if not args.skip_train:
+        # full width, 8 of 28 layers: at 12 bytes a parameter (bf16 parameters and
+        # gradients, fp32 moments) the full depth's 7.07 G would need 85 GB
+        tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+        L_ = tcfg.n_layers
+        TRAIN_STEPS = 6
+        t0 = time.perf_counter()
+        trainer = Trainer(TrainerConfig(
+            arch=tcfg, steps=TRAIN_STEPS, global_batch=B_TRAIN, seq_len=S_TRAIN,
+            ckpt_every=0, log_every=1, remat="none", seed=args.seed, device="cuda"))
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = trainer.model.n_params()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, with the counts at 0
+        ops.reset_launch_counts()
+        state, hist = trainer.run(state)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        path_counts["train"] = counts
+        path_variants["train"] = ops.flash_launches_by_variant()
+        path_bwd_variants["train"] = ops.flash_bwd_launches_by_variant()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        per_step = {"rmsnorm": 2 * L_ + 1, "rmsnorm_bwd": 2 * L_ + 1,
+                    "flash_attention": L_, "flash_attention_bwd": L_}
+        want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+        if counts != want:
+            fail(f"train: {TRAIN_STEPS} steps launched {counts}, expected {want}")
+        if path_variants["train"]["sm90_wgmma"] != TRAIN_STEPS * L_:
+            fail(f"train: flash forward launches by variant {path_variants['train']}: "
+                 "all must be the wgmma kernel")
+        if path_bwd_variants["train"]["mma_sync"] != TRAIN_STEPS * L_:
+            fail(f"train: flash backward launches by variant {path_bwd_variants['train']}")
+        losses = [h["loss"] for h in hist]
+        if [h["step"] for h in hist] != list(range(TRAIN_STEPS)) or not all(
+                math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+            fail(f"train: losses or grad norms missing or not finite: {hist}")
+        # at init the logits of the random tied unembedding (N(0, 0.02^2) entries)
+        # against RMS-normalised hidden states are ~N(0, d * 0.02^2), so the
+        # log-sum-exp over the vocabulary, and the loss, sit at ln V + d * 0.02^2 / 2
+        loss0_expected = math.log(tcfg.vocab) + tcfg.d_model * 0.02 ** 2 / 2
+        if not abs(losses[0] - loss0_expected) <= 0.5:
+            fail(f"train: step-0 loss {losses[0]:.4f} is not within 0.5 of "
+                 f"{loss0_expected:.4f}")
+        walls = [h["wall"] for h in hist]
+        step_ms = (walls[-1] - walls[0]) * 1e3 / (TRAIN_STEPS - 1)   # steps 2..6
+        tokens = B_TRAIN * S_TRAIN
+        attn_flops = 12.0 * tcfg.hd * visible_pairs(S_TRAIN, S_TRAIN, tcfg.causal, 0) \
+            * B_TRAIN * tcfg.n_heads * L_
+        model_flops = 6.0 * n_params * tokens + attn_flops
+        report["train"] = {
+            "phase": "train", "config": tcfg.name, "dtype": tcfg.dtype,
+            "layers": L_, "layers_published": get_config("qwen2_7b").n_layers,
+            "d_model": tcfg.d_model, "n_params": n_params,
+            "global_batch": B_TRAIN, "seq_len": S_TRAIN, "steps": TRAIN_STEPS,
+            "remat": "none", "init_s": round(init_s, 2),
+            "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+            "lrs": [h["lr"] for h in hist],
+            "step0_loss_expected": loss0_expected, "ln_vocab": math.log(tcfg.vocab),
+            "step_walls_s": walls,
+            "ms_per_step": step_ms, "tokens_per_s": tokens / (step_ms * 1e-3),
+            "model_flops_per_step": model_flops,
+            "mfu": model_flops / (step_ms * 1e-3) / PEAK_TENSOR_16BIT_FLOPS,
+            "peak_memory_bytes": peak_bytes,
+            "launches": counts, "launches_per_step": per_step,
+            "flash_launches_by_variant": path_variants["train"],
+            "flash_bwd_launches_by_variant": path_bwd_variants["train"]}
+        emit(report["train"])
+        stop_if_failed("train")
+        del trainer, state
+        torch.cuda.empty_cache()
 
     # ------------------------------------------------------------- verdict
-    if args.skip_serve:
-        print("chip_smoke: --skip-serve: the main path was not driven, so no "
-              "result is printed", file=sys.stderr)
+    if args.skip_serve or args.skip_train:
+        print("chip_smoke: --skip-serve / --skip-train: a main path was not driven, so "
+              "no result is printed", file=sys.stderr)
         sys.exit(4)
+    for name, kern in kernels.items():
+        kern["launches_by_path"] = {path: c[name] for path, c in path_counts.items()}
+        kern["launches"] = sum(kern["launches_by_path"].values())
+        if kern["launches_by_path"]["train"] == 0:
+            fail(f"kernel {name} was not launched on the training path")
+    kernels["flash_attention"]["launches_by_variant"] = {
+        path: v for path, v in path_variants.items()}
+    kernels["flash_attention_bwd"]["launches_by_variant"] = path_bwd_variants["train"]
+    stop_if_failed("verdict")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype", "tol")
-    keys += ("variant", "launches_by_variant")
+    keys += ("variant", "launches_by_path", "launches_by_variant")
     kernels_line = {"kernels": [{key: kern[key] for key in keys if key in kern}
                                 for kern in kernels.values()]}
     final = {"ok": True, "device": {"platform": "gpu",

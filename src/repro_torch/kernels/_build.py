@@ -106,14 +106,39 @@ class RmsnormCall(ctypes.Structure):
                 ("device", _I)]
 
 
+class RmsnormBwdCall(ctypes.Structure):
+    """``struct RmsnormBwdCall`` of ``csrc/rmsnorm_bwd.cu``."""
+    _fields_ = [("x", _P), ("w", _P), ("dy", _P), ("dx", _P), ("dw", _P),
+                ("partial", _P), ("stream", _P), ("rows", _I), ("d", _I),
+                ("eps", _F), ("workers", _I), ("x_dtype", _I), ("w_dtype", _I),
+                ("device", _I)]
+
+
+FLASH_BWD_TENSORS = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+
+
+class FlashBwdCall(ctypes.Structure):
+    """``struct FlashBwdCall`` of ``csrc/flash_attention_bwd.cu``."""
+    _fields_ = ([(n, _P) for n in ("q", "k", "v", "o", "dout", "lse", "delta",
+                                   "dq", "dk", "dv", "stream")]
+                + [(n, _I) for n in ("B", "Sq", "Skv", "H", "KV", "hd")]
+                + [(f"{t}_{s}", _LL) for t in FLASH_BWD_TENSORS
+                   for s in ("sb", "ss", "sh")]
+                + [("causal", _I), ("window", _I), ("softcap", _F), ("dtype", _I),
+                   ("device", _I)])
+
+
 #: the library's C interface, name -> (restype, argtypes); ``load()`` binds it and
 #: a CPU test holds it against the ``extern "C"`` declarations in ``csrc/``
 #: (a pointer to a struct is a ``c_void_p`` here: the address of a ``RmsnormCall``)
 SIGNATURES = {
     "repro_rmsnorm_fwd": (_I, [_P]),
+    "repro_rmsnorm_bwd": (_I, [_P]),
     "repro_flash_attention_fwd": (
-        _I, [_P] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _I, _I, _P]),
+        _I, [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _I, _I, _P]),
     "repro_flash_attention_variant": (_I, [_I, _I]),
+    "repro_flash_attention_bwd": (_I, [_P]),
+    "repro_flash_attention_bwd_variant": (_I, [_I, _I]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -123,6 +148,7 @@ REFUSALS = {
     -2: "unsupported element type",
     -3: "a TMA tensor map could not be encoded for these tensors",
     -4: "the driver's cuTensorMapEncodeTiled is unavailable",
+    -5: "a row too wide for the kernel's shared memory, or a bad worker count",
 }
 
 

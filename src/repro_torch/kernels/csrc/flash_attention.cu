@@ -5,7 +5,8 @@
 // scale 1/sqrt(hd), optional softcap tanh(s/c)*c applied BEFORE the mask, causal
 // mask qpos >= kpos with qpos offset by Skv - Sq, window mask qpos - kpos < window
 // (applied whether or not causal is set), fp32 (acc, m, l), p forced to 0 where
-// s <= -5e29, result acc / max(l, 1e-30).  Contract: Sq <= Skv.
+// s <= -5e29, result acc / max(l, 1e-30), and on request lse = m + log(l) per row
+// for the backward.  Contract: Sq <= Skv.
 //
 // The C entry point below picks one of three kernels by type and head_dim (the
 // rule is flash::variant_for in flash_attention.cuh; it is a split by shape, not a
@@ -46,6 +47,7 @@
 #include <stdint.h>
 
 #include "flash_attention.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -53,96 +55,19 @@ using flash::kNegInf;
 using flash::kv_range;
 using flash::masked_score;
 using flash::Params;
+using flash::Mma;
+using flash::lds32;
+using flash::load_q_fragment;
+using flash::ldmatrix_x4_trans;
+using flash::load_tile_async;
+using flash::cp_async_commit;
+using flash::cp_async_wait;
+using flash::warp_max;
+using flash::warp_sum;
 
 // ---------------------------------------------------------------------------
-// 16-bit inputs: tensor cores through mma.sync.m16n8k16
+// 16-bit inputs: tensor cores through mma.sync.m16n8k16 (helpers in flash_mma.cuh)
 // ---------------------------------------------------------------------------
-
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-template <typename T> __device__ __forceinline__ uint32_t lds32(const T* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// The A fragment (16 rows x 16 columns) of one k-step: `ptr` is this lane's
-// element (row g, column 2t) of the block, `lds` the row stride in elements.
-template <typename T>
-__device__ __forceinline__ void load_q_fragment(uint32_t (&a)[4], const T* ptr, int lds) {
-  a[0] = lds32(ptr);
-  a[1] = lds32(ptr + 8 * lds);
-  a[2] = lds32(ptr + 8);
-  a[3] = lds32(ptr + 8 * lds + 8);
-}
-
-// Four 8x8 b16 matrices from shared memory, each transposed on the way: lane l
-// gives the address of row (l & 7) of matrix (l >> 3).
-template <typename T>
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const T* row_ptr) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row_ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// Start the asynchronous copy of `rows` rows of HD 16-bit values (16 bytes a
-// thread and request) from a strided global tensor into padded shared memory;
-// rows at or past `limit` are zero-filled (a cp.async with source size 0).  The
-// copies belong to the caller's next cp.async commit group.
-template <typename T, int HD, int LDS>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src, long long row_stride,
-                                                int first, int limit, int rows, int tid,
-                                                int nthreads) {
-  constexpr int VPR = HD / 8;
-  for (int i = tid; i < rows * VPR; i += nthreads) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool ok = first + r < limit;
-    const T* from = src + (ok ? (long long)(first + r) * row_stride + c : 0);
-    const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * LDS + c));
-    const int bytes = ok ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(from),
-                 "r"(bytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's commit groups are still in flight.
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <typename T, int HD, int BM, int BN>
 __global__ void __launch_bounds__(BM * 2) flash_fwd_mma_kernel(const Params p) {
@@ -306,6 +231,8 @@ __global__ void __launch_bounds__(BM * 2) flash_fwd_mma_kernel(const Params p) {
       for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + j * 8) =
             Mma<T>::pack(o_acc[j][2 * r] * inv, o_acc[j][2 * r + 1] * inv);
+      if (p.lse != nullptr && t == 0)
+        p.lse[((long long)b * p.H + h) * p.Sq + row_q[r]] = m_row[r] + logf(fmaxf(l, 1e-30f));
     }
   }
 }
@@ -341,18 +268,6 @@ int dispatch_mma(const Params& p, int hd, cudaStream_t st) {
 // ---------------------------------------------------------------------------
 // fp32 inputs: scalar FMAs, a warp per query row
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 constexpr int kScalarRows = 8;  // query rows (warps) per block
 constexpr int kScalarKeys = 32; // keys per tile: one per lane
@@ -427,6 +342,8 @@ __global__ void __launch_bounds__(kScalarRows * 32) flash_fwd_scalar_kernel(cons
 
   if (row < p.Sq) {
     const float inv = 1.0f / fmaxf(l, 1e-30f);
+    if (p.lse != nullptr && lane == 0)
+      p.lse[((long long)b * p.H + h) * p.Sq + row] = m + logf(fmaxf(l, 1e-30f));
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
@@ -466,19 +383,24 @@ extern "C" int repro_flash_attention_variant(int hd, int dtype) {
 
 // Strides are in elements; the head_dim stride must be 1 and, for 16-bit types,
 // every row must start on a 16-byte boundary (the Python wrapper checks both).
+// `lse`, when not null, receives each query row's log-sum-exp of its scaled (and
+// capped) visible scores, natural log, as a contiguous (B, H, Sq) float32 tensor:
+// what the backward (flash_attention_bwd.cu) recomputes the probabilities from.
+// Serving passes null and writes nothing.
 // Launches on `stream` of CUDA device `device`.  Returns 0, a cudaError_t (> 0)
 // from the launch, -1 for a head_dim that is not compiled in, -2 for an unknown
 // type, -3 / -4 when the TMA kernel's tensor maps cannot be made (see
 // flash_attention.cuh).  No variant ever stands in for another.
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int H, int KV,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Skv,
+    int H, int KV,
     int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, float softcap, int dtype,
     int device, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.B = B; p.Sq = Sq; p.Skv = Skv; p.H = H; p.KV = KV;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;

@@ -22,6 +22,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) log-sum-exp per query row, or null: not written
   int B, Sq, Skv, H, KV;
   // strides in elements of (batch, sequence, head); the head_dim stride is 1
   long long q_sb, q_ss, q_sh;
@@ -48,7 +49,9 @@ inline int variant_for(int hd, int dtype) {
 
 // Range of kv positions that a tile of query rows [q0, q0 + rows) can see, as
 // [lo, hi) with lo rounded down to a multiple of `bn`.
-__device__ __forceinline__ void kv_range(const Params& p, int q0, int rows, int bn, int& lo,
+// (Any parameter block with Sq, Skv, causal and window: the backward's too.)
+template <typename P>
+__device__ __forceinline__ void kv_range(const P& p, int q0, int rows, int bn, int& lo,
                                          int& hi) {
   const int offset = p.Skv - p.Sq;
   const int rows_end = min(q0 + rows, p.Sq);

@@ -7,7 +7,8 @@
 // flash_attention.cu states it: q (B,Sq,H,hd), k/v (B,Skv,KV,hd), H % KV == 0,
 // scale 1/sqrt(hd), softcap before the mask, causal qpos >= kpos with qpos offset
 // by Skv - Sq, window qpos - kpos < window with or without causal, p = 0 where
-// s <= -5e29, result acc / max(l, 1e-30), Sq <= Skv, ragged Sq and Skv.
+// s <= -5e29, result acc / max(l, 1e-30), lse = m + log(l) per row when asked,
+// Sq <= Skv, ragged Sq and Skv.
 //
 // Bound on this card: operations.  At the prefill shape (S = 2048, hd = 128) the
 // two products do ~S*hd/2 flops per byte of q/k/v/o, far above the ~295 flop/byte
@@ -578,6 +579,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int jj = 0; jj < HD / 8; ++jj)
             *reinterpret_cast<uint32_t*>(orow + jj * 8) =
                 Wg<T>::pack(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+          // m_row is in units of the scaled score (the exponentials only run in
+          // base 2), so this is the natural-log lse the backward expects
+          if (p.lse != nullptr && tq == 0)
+            p.lse[((long long)tw.b * p.H + tw.h) * p.Sq + row[r]] =
+                m_row[r] + logf(fmaxf(l, 1e-30f));
         }
       }
     }

@@ -28,29 +28,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rmsnorm.cuh"
+
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
-
-template <typename T, int N> struct alignas(sizeof(T) * N) Pack { T v[N]; };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using rmsnorm::DeviceGuard;
+using rmsnorm::from_f;
+using rmsnorm::Pack;
+using rmsnorm::to_f;
+using rmsnorm::warp_sum;
 
 // Sum of squares of the elements first, first+step, ... of one row, VEC at a time.
 template <typename T, int VEC>
@@ -153,24 +139,6 @@ int launch_w(const void* x, const void* w, void* y, int rows, int d, float eps, 
   if (w_dtype == 0) return (int)launch_vec<T, float>(x, w, y, rows, d, eps, st);
   return -2;
 }
-
-// Makes `dev` the current device for the lifetime of the guard when it is not
-// already (the runtime launches on the current device).
-struct DeviceGuard {
-  int prev = -1;
-  cudaError_t err = cudaSuccess;
-  explicit DeviceGuard(int dev) {
-    int cur = 0;
-    err = cudaGetDevice(&cur);
-    if (err == cudaSuccess && cur != dev) {
-      err = cudaSetDevice(dev);
-      if (err == cudaSuccess) prev = cur;
-    }
-  }
-  ~DeviceGuard() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 }  // namespace
 

@@ -1,33 +1,46 @@
-"""Fused attention forward: wrapper around ``csrc/flash_attention.cu``.
+"""Fused attention, forward and backward: wrappers around ``csrc/flash_attention*.cu``.
 
 A CUDA tensor launches a kernel or raises; a CPU tensor takes the plain
-version.  Forward only: the backward kernel comes with the training path.
+version.  A call that needs gradients goes through :class:`FlashAttention`, a
+``torch.autograd.Function``: on the card its forward launches the forward kernel
+with the per-row log-sum-exp ``lse`` written beside the output, and its backward
+launches the backward kernels (``csrc/flash_attention_bwd.cu``: D, then dk/dv,
+then dq); on the CPU both are the plain versions of ``ref``.  A call without
+gradients (serving) launches the forward kernel alone and writes no ``lse``.
 
-Which kernel a CUDA call launches is the library's own rule (``variant``):
-16-bit inputs at head_dim 64 and 128 take the TMA + wgmma kernel, the other
-16-bit head_dims the mma.sync kernel, float32 the scalar kernel.  A variant
-that cannot run (a tensor map that cannot be encoded, a refused launch) raises;
-no other variant stands in for it.
+Which kernel a CUDA call launches is the library's own rule (``variant``,
+``bwd_variant``): forward, 16-bit inputs at head_dim 64 and 128 take the TMA +
+wgmma kernel, the other 16-bit head_dims the mma.sync kernel, float32 the scalar
+kernel; backward, 16-bit inputs the mma.sync kernels, float32 the scalar ones.  A
+variant that cannot run (a tensor map that cannot be encoded, a refused launch)
+raises; no other variant stands in for it.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mha_reference
+from repro_torch.kernels.ref import (flash_attention_bwd_reference,
+                                     flash_attention_lse_reference, mha_reference)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 VARIANTS = ("scalar", "mma_sync", "sm90_wgmma")   # the C interface's codes 0, 1, 2
+BWD_VARIANTS = ("scalar", "mma_sync")              # codes 0, 1 of the backward
 
-#: kernel launches made by :func:`flash_attention` in this process, in all and
-#: by the kernel that ran
+#: kernel launches in this process (CUDA tensors only): forward calls in all and by
+#: the kernel that ran, backward calls (each one launch of D, dk/dv and dq) likewise
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+bwd_launches = 0
+bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 
 _fwd = None        # the library's repro_flash_attention_fwd, bound at first use
 _stream = None     # device index -> raw handle of its current stream
 _variant: dict[tuple[int, int], str] = {}   # (dtype code, hd) -> variant
+_bwd_variant: dict[tuple[int, int], str] = {}   # the same for the backward
 
 
 def _bind() -> None:
@@ -49,6 +62,18 @@ def variant(dtype: torch.dtype, hd: int) -> str:
     return _variant[key]
 
 
+def bwd_variant(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernels that a CUDA call of this type and head_dim launches."""
+    key = (_build.DTYPE_CODES[dtype], hd)
+    if key not in _bwd_variant:
+        code = _build.load().repro_flash_attention_bwd_variant(hd, key[0])
+        if code < 0:
+            raise ValueError(f"flash_attention: no backward kernel for {dtype} at "
+                             f"head_dim {hd}")
+        _bwd_variant[key] = BWD_VARIANTS[code]
+    return _bwd_variant[key]
+
+
 def _check_layout(name: str, t: torch.Tensor) -> None:
     if t.stride(-1) != 1:
         raise ValueError(f"flash_attention: {name}'s head_dim stride must be 1")
@@ -58,6 +83,14 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
                          "16-byte boundaries")
 
 
+def _layout_ok(t: torch.Tensor) -> bool:
+    try:
+        _check_layout("", t)
+    except ValueError:
+        return False
+    return True
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0) -> torch.Tensor:
@@ -65,9 +98,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Queries are aligned to the end of the keys (query i sits at position
     ``i + Skv - Sq``).  ``Sq <= Skv`` is required on either device: with more
-    queries than keys the first rows would see no key at all.
+    queries than keys the first rows would see no key at all.  Differentiable in
+    q, k and v on either device.
     """
-    global launches
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -81,18 +114,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "query rows without any key")
     if window < 0:
         raise ValueError("flash_attention: window must be >= 0")
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if not q.is_cuda:
         if not (q.device == k.device == v.device):
             raise ValueError("flash_attention: q, k, v on different devices")
+        if grad:
+            return FlashAttention.apply(q, k, v, causal, window, softcap)
         return mha_reference(q, k, v, causal=causal, window=window,
                              softcap=softcap)
     dev = q.get_device()
     if not (k.is_cuda and v.is_cuda and k.get_device() == dev == v.get_device()):
         raise ValueError("flash_attention: q, k, v on different devices")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise RuntimeError("flash_attention: the kernel is forward-only; "
-                           "call it under torch.no_grad()")
     code = _build.DTYPE_CODES.get(q.dtype)
     if code is None or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention: unsupported dtypes {q.dtype}, "
@@ -102,14 +135,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(have {HEAD_DIMS})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
+    if grad:
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
+    return launch_forward(q, k, v, causal, window, softcap, with_lse=False)[0]
+
+
+def launch_forward(q, k, v, causal, window, softcap, *, with_lse: bool):
+    """Launch the forward kernel on checked CUDA tensors: (o, lse or None)."""
+    global launches
+    B, Sq, H, hd = q.shape
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if o.numel() == 0:
-        return o
+        return o, lse
     if _fwd is None:
         _bind()
+    code = _build.DTYPE_CODES[q.dtype]
     kind = _variant.get((code, hd)) or variant(q.dtype, hd)
+    dev = q.get_device()
     err = _fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               B, Sq, Skv, H, KV, hd,
+               lse.data_ptr() if with_lse else None,
+               B, Sq, k.shape[1], H, k.shape[2], hd,
                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *o.stride()[:3],
                int(bool(causal)), int(window), float(softcap), code, dev,
@@ -118,4 +165,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.check(err, "flash_attention")
     launches += 1
     launches_by_variant[kind] += 1
-    return o
+    return o, lse
+
+
+def launch_backward(q, k, v, o, lse, do, causal, window, softcap):
+    """Launch the backward kernels on CUDA tensors: (dq, dk, dv).  q, k, v and o
+    as the forward took and gave them, lse its (B, H, Sq) float32 output."""
+    global bwd_launches
+    B, Sq, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: o {tuple(o.shape)} {o.dtype} or "
+                         f"do {tuple(do.shape)} does not match q {tuple(q.shape)} {q.dtype}")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention backward: lse must be a contiguous float32 "
+                         f"({B}, {H}, {Sq}), got {lse.dtype} {tuple(lse.shape)}")
+    dev = q.get_device()
+    if not all(t.is_cuda and t.get_device() == dev for t in (k, v, o, lse, do)):
+        raise ValueError("flash_attention backward: tensors on different devices")
+    _check_layout("o", o)
+    if do.dtype != q.dtype or not _layout_ok(do):
+        do = do.to(q.dtype).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if _fwd is None:
+        _bind()
+    kind = bwd_variant(q.dtype, q.shape[3])
+    delta = torch.empty_like(lse)
+    call = _build.FlashBwdCall(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
+        dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
+        dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(), stream=_stream(dev),
+        B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1], H=q.shape[2], KV=k.shape[2],
+        hd=q.shape[3], causal=int(bool(causal)), window=int(window),
+        softcap=float(softcap), dtype=_build.DTYPE_CODES[q.dtype], device=dev)
+    for name, t in zip(_build.FLASH_BWD_TENSORS, (q, k, v, o, do, dq, dk, dv)):
+        setattr(call, f"{name}_sb", t.stride(0))
+        setattr(call, f"{name}_ss", t.stride(1))
+        setattr(call, f"{name}_sh", t.stride(2))
+    err = _build.load().repro_flash_attention_bwd(ctypes.addressof(call))
+    if err:
+        _build.check(err, "flash_attention backward")
+    bwd_launches += 1
+    bwd_launches_by_variant[kind] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the counterpart of the reference's
+    ``_flash_diff`` / ``_flash_vjp_fwd`` / ``_flash_vjp_bwd``.  Saves q, k, v, the
+    output and its per-row lse; the backward recomputes the probabilities from
+    them (kernels on the card, ``ref`` on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        if q.is_cuda:
+            o, lse = launch_forward(q, k, v, causal, window, softcap, with_lse=True)
+        else:
+            o = mha_reference(q, k, v, causal=causal, window=window, softcap=softcap)
+            lse = flash_attention_lse_reference(q, k, causal=causal, window=window,
+                                                softcap=softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.mask
+        if q.is_cuda:
+            dq, dk, dv = launch_backward(q, k, v, o, lse, do, causal, window, softcap)
+        else:
+            dq, dk, dv = flash_attention_bwd_reference(
+                q, k, v, o, lse, do, causal=causal, window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None

@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -357,3 +359,42 @@ def logits_chunked(x: torch.Tensor, emb: torch.Tensor, cfg,
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
+
+
+def _xent_chunk(xs: torch.Tensor, emb: torch.Tensor, ls: torch.Tensor,
+                softcap: float):
+    """Summed masked cross-entropy and label count of one sequence chunk."""
+    lg = xs @ emb.to(xs.dtype).t()
+    if softcap:
+        lg = torch.tanh(lg / softcap) * softcap
+    lg = lg.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    pick = lg.gather(-1, ls.clamp(min=0).long()[..., None])[..., 0]
+    mask = (ls >= 0).float()
+    return ((lse - pick) * mask).sum(), mask.sum()
+
+
+def xent_loss(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, cfg,
+              chunk: int = 256) -> torch.Tensor:
+    """Chunked cross-entropy: never materializes (B,S,V) at once.
+
+    x: (B,S,d) final hidden; emb: (V,d) tied unembedding; labels: (B,S).
+    Label -100 entries are masked out; the mean is over the unmasked labels,
+    fp32.  With gradients each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``), so no chunk's (B, cs, V) fp32 logits outlive
+    its own forward and backward.
+    """
+    B, S, d = x.shape
+    cs = min(chunk, S)
+    while S % cs:
+        cs -= 1
+    remat = torch.is_grad_enabled() and (x.requires_grad or emb.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // cs):     # cs chosen so that there are few chunks
+        args = (x[:, i * cs:(i + 1) * cs], emb, labels[:, i * cs:(i + 1) * cs],
+                cfg.logit_softcap)
+        a, b = (checkpoint(_xent_chunk, *args, use_reentrant=False) if remat
+                else _xent_chunk(*args))
+        tot, cnt = tot + a, cnt + b
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,23 +1,30 @@
-"""Composable LM, serving part: dense decoder blocks (``"attn"`` + FFN).
+"""Composable LM: dense decoder blocks (``"attn"`` + FFN), training and serving.
 
 One :class:`LM` consumes an :class:`repro_torch.models.config.ArchConfig` and
-provides ``init / forward / prefill / init_cache / unstack_cache /
+provides ``init / forward / loss / prefill / init_cache / unstack_cache /
 decode_step``.  It is an ``nn.Module`` holding an ``nn.ModuleList`` of blocks;
 block ``i`` is cycle ``c`` and pattern position ``p`` of the reference's stacked
 layout, ``i = c * cycle_len + p``.  The layer functions live in
 :mod:`repro_torch.models.layers`.
 
-Still to be ported, and refused with ``NotImplementedError`` until then: the
-training entry points (``loss``), mixture-of-experts FFNs, the other block
-kinds (cross_attn, mamba, mlstm, slstm, shared_attn) and the encoder.
+``forward`` and ``loss`` run with gradients: the RMSNorm and attention kernels
+sit on the path through their ``autograd.Function``s (kernels/), and ``remat``
+recomputes each block in the backward through ``torch.utils.checkpoint``.
+
+Still to be ported, and refused with ``NotImplementedError`` until then:
+mixture-of-experts FFNs, the other block kinds (cross_attn, mamba, mlstm,
+slstm, shared_attn) and the encoder.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -47,6 +54,17 @@ def _refuse_unported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoder and cross-attention are not ported yet "
             "(the slice that ports the remaining block kinds)")
+
+
+#: matrix products without batch dims: what ``remat="selective"`` keeps, as the
+#: reference's ``dots_with_no_batch_dims_saveable`` policy does
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMAT = ("none", "selective", "full")
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class LM(nn.Module):
@@ -108,25 +126,45 @@ class LM(nn.Module):
     # Forward (prefill)
     # ------------------------------------------------------------------
 
-    def forward(self, tokens: torch.Tensor, *, return_cache: bool = False):
+    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor):
+        """One ``"attn"`` layer: (new x, its k, its v)."""
+        cfg = self.cfg
+        h = L.rms_norm(x, blk.attn["ln"], cfg.norm_eps)
+        q, k, v = L._qkv(blk.attn, cfg, h, positions)
+        # implicit positions: the fused attention kernel on the card
+        o = L.mha(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk)
+        x = x + L._proj_out(o, blk.attn["wo"])
+        return L.ffn_block(blk.ffn, cfg, x), k, v
+
+    def forward(self, tokens: torch.Tensor, *, remat: str = "none",
+                return_cache: bool = False):
         """Full-sequence forward.  Returns the final hidden (B,S,d), and the
         decode cache when ``return_cache`` (prefill path): a tuple over
         pattern positions of ``{"k","v"}``, each stacked over cycles as
-        ``(n_cycles, B, S, KV, hd)``."""
+        ``(n_cycles, B, S, KV, hd)``.
+
+        ``remat`` (with gradients only): ``"none"`` keeps every activation for
+        the backward; ``"full"`` keeps each block's input and recomputes the
+        block; ``"selective"`` also keeps the outputs of its matrix products."""
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         cfg = self.cfg
         B, S = tokens.shape
         x = L.embed(self.embed, cfg, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         per_pos: list[list[dict]] = [[] for _ in cfg.pattern]
+        recompute = remat != "none" and torch.is_grad_enabled()
+        kw = {"use_reentrant": False}
+        if remat == "selective":
+            kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 _save_products)
         for i, blk in enumerate(self.blocks):
-            h = L.rms_norm(x, blk.attn["ln"], cfg.norm_eps)
-            q, k, v = L._qkv(blk.attn, cfg, h, positions)
-            # implicit positions: the fused attention kernel on the card
-            o = L.mha(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk)
-            x = x + L._proj_out(o, blk.attn["wo"])
+            if recompute:
+                x, k, v = checkpoint(self._block, blk, x, positions, **kw)
+            else:
+                x, k, v = self._block(blk, x, positions)
             if return_cache:
                 per_pos[i % cfg.cycle_len].append({"k": k, "v": v})
-            x = L.ffn_block(blk.ffn, cfg, x)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         if return_cache:
             caches = tuple(
@@ -136,8 +174,15 @@ class LM(nn.Module):
         return x
 
     # ------------------------------------------------------------------
-    # Serving entry points
+    # Training / serving entry points
     # ------------------------------------------------------------------
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor, *,
+             remat: str = "none") -> torch.Tensor:
+        """Mean next-token cross-entropy (fp32) over the labels that are not
+        -100, with the tied unembedding."""
+        x = self.forward(tokens, remat=remat)
+        return L.xent_loss(x, self.embed["tok"], labels, self.cfg)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor):

@@ -1,1 +1,1 @@
-"""Prefill and serve steps; the sharding layers are not ported yet."""
+"""Train, prefill and serve steps; the sharding layers are not ported yet."""

@@ -1,16 +1,24 @@
-"""Prefill / serve step makers (the serving half of the reference's
-``parallel/trainstep.py``; ``make_train_step`` comes with the training path).
+"""Train / prefill / serve step makers (the reference's ``parallel/trainstep.py``).
 
-The reference's steps take the parameter tree as their first argument; here
-the parameters live in the ``LM`` module, so the steps take only what changes
-from call to call.
+``make_train_step`` builds one optimizer step: microbatched gradient
+accumulation (a Python loop in place of ``lax.scan``), global-norm clipping,
+AdamW, metrics.  Sharding waits for the parallel layer: the steps run on one
+device.
+
+The reference's steps take the parameter tree as their first argument; here the
+parameters live in the ``LM`` module.  The train state's ``params`` are the
+module's own parameter tensors (``init_train_state``), updated in place by the
+step; the serving steps take only what changes from call to call.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
 from repro_torch.models.lm import LM
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
 MOD_KEYS = ("audio_embed", "vision_embed")
 
@@ -26,6 +34,78 @@ def _refuse_mods(mods: dict) -> None:
         raise NotImplementedError(
             f"modality inputs {sorted(mods)} need the encoder and "
             "cross-attention blocks, which are not ported yet")
+
+
+@torch.no_grad()
+def _bind_params(model: LM, params: dict) -> dict:
+    """The model's own parameters holding ``params``' values: a state whose
+    tensors are not the model's (one restored from a checkpoint) is copied in."""
+    own = dict(model.named_parameters())
+    if own.keys() != params.keys():
+        raise KeyError(f"train state params {sorted(set(params) ^ set(own))} do not "
+                       "match the model's")
+    for name, t in params.items():
+        if t is not own[name]:
+            own[name].copy_(t)
+    return own
+
+
+def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
+                    microbatches: int = 1,
+                    remat: str = "selective") -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``state = {"params": {name: tensor}, "opt": OptState}``;
+    ``batch = {"tokens": (B,S) int, "labels": (B,S) int}``.  With
+    ``microbatches`` M > 1 the batch is cut into M row blocks whose gradients are
+    summed in fp32 and divided by M, as the loss is.  Metrics (0-d tensors on the
+    device): ``loss``, ``grad_norm``, ``lr``, ``tokens``.
+    """
+
+    def loss_fn(mb: dict) -> torch.Tensor:
+        rest, mods = _split_mods(mb)
+        _refuse_mods(mods)
+        return model.loss(rest["tokens"], rest["labels"], remat=remat)
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = _bind_params(model, state["params"])
+        leaves = list(params.values())
+        M = microbatches
+        if M == 1:
+            loss = loss_fn(batch)
+            grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach()
+        else:
+            n = batch["tokens"].shape[0] // M
+            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for p in leaves]
+            for i in range(M):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l_i = loss_fn(mb)
+                for acc, g in zip(grads, torch.autograd.grad(l_i, leaves)):
+                    acc.add_(g)
+                loss = loss + l_i.detach()
+            loss = loss / M
+            for acc in grads:
+                acc.div_(M)
+        new_params, new_opt, om = adamw_update(params, dict(zip(params, grads)),
+                                               state["opt"], opt_cfg)
+        tokens = batch["tokens"]
+        metrics = {"loss": loss, **om,
+                   "tokens": torch.tensor(float(tokens.shape[0] * tokens.shape[1]),
+                                          dtype=torch.float32)}
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
+
+
+def init_train_state(model: LM, generator: torch.Generator) -> dict:
+    """Random-initialise ``model`` from ``generator``; its parameters and zeroed
+    moments are the state."""
+    model.init(generator)
+    params = dict(model.named_parameters())
+    return {"params": params, "opt": init_opt_state(params)}
 
 
 def make_prefill_step(model: LM) -> Callable:

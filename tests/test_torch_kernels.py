@@ -1,5 +1,8 @@
-"""Plain PyTorch versions of the two kernels against the reference's Pallas
-kernels (interpret mode on the CPU) and its jnp oracles, in float32.
+"""Plain PyTorch versions of the kernels against the reference's Pallas
+kernels (interpret mode on the CPU) and its jnp oracles, in float32: the two
+forwards, the attention forward's lse, and the two backwards (against ``jax.vjp``
+of the reference's kernel, whose custom VJP differentiates ``mha_reference``, and
+``jax.grad`` of its RMSNorm oracle).
 
 The CUDA kernels themselves are held against these plain versions on the card
 by ``chip_smoke.py``; here a CPU tensor takes the plain version through the
@@ -15,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
@@ -148,9 +152,14 @@ def test_ops_on_cpu_take_plain_versions_and_launch_nothing():
     w = torch.full((96,), 1.5)
     assert torch.equal(ops.rmsnorm(x, w, eps=1e-5),
                        ref.rmsnorm_reference(x, w, 1e-5))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    q.requires_grad_()
+    x.requires_grad_()
+    (ops.flash_attention(q, k, v).sum() + ops.rmsnorm(x, w).sum()).backward()
+    assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_bwd": 0,
+                                   "flash_attention": 0, "flash_attention_bwd": 0}
     assert ops.flash_launches_by_variant() == {"scalar": 0, "mma_sync": 0,
                                                "sm90_wgmma": 0}
+    assert ops.flash_bwd_launches_by_variant() == {"scalar": 0, "mma_sync": 0}
     assert flash_mod.launches == 0 and rmsnorm_mod.launches == 0
 
 
@@ -207,7 +216,8 @@ _FLASH_REFUSALS = {
     "rank": (lambda q, k, v: (q[0], k, v), ValueError, "bad shapes"),
     "window": ("window", ValueError, "window"),
     "device": ("device", ValueError, "different devices"),
-    "grad": ("grad", RuntimeError, "forward-only"),
+    # a call that needs gradients is checked as strictly as one that does not
+    "grad": ("grad", TypeError, "unsupported dtypes"),
     "dtype": (lambda q, k, v: (q.half(), k, v), TypeError, "unsupported dtypes"),
     "float64": (lambda q, k, v: (q.double(), k.double(), v.double()), TypeError,
                 "unsupported dtypes"),
@@ -242,7 +252,7 @@ def test_flash_attention_refuses_bad_shapes(bad, device):
     elif bad == "device":
         q, k, v = _cuda(q, cls=FakeCuda1) + [k, v]   # k, v stay on the CPU
     elif bad == "grad":
-        q = q.requires_grad_()
+        q = q.half().requires_grad_()
     else:
         q, k, v = breaker(q, k, v)
     if device == "cuda" and bad != "device":
@@ -259,7 +269,8 @@ _RMS_REFUSALS = {
     "scalar_x": (lambda x, w: (x[0, 0], w[:0].sum()), ValueError, "does not match"),
     "device": ("device", ValueError, " on "),
     "other_card": ("other_card", ValueError, " on "),
-    "grad": ("grad", RuntimeError, "forward-only"),
+    # a call that needs gradients is checked as strictly as one that does not
+    "grad": ("grad", ValueError, "does not match"),
     "dtype": (lambda x, w: (x.long(), w), TypeError, "unsupported dtype"),
     "weight_dtype": (lambda x, w: (x.half(), w.bfloat16()), TypeError, "or float32"),
     "x_layout": (lambda x, w: (x.t().contiguous().t(), w), ValueError, "contiguous"),
@@ -282,14 +293,156 @@ def test_rmsnorm_refuses_mismatched_weight(bad, device):
     elif bad == "other_card":
         x, w = _cuda(x)[0], _cuda(w, cls=FakeCuda1)[0]
     elif bad == "grad":
-        x, w = _cuda(x, w.requires_grad_())
+        x, w = _cuda(x.requires_grad_(), w[:4])
     else:
         x, w = breaker(x, w)
         if device == "cuda":
             x, w = _cuda(x, w)
     with pytest.raises(error, match=says):
         ops.rmsnorm(x, w)
-    assert rmsnorm_mod.launches == 0
+    assert rmsnorm_mod.launches == 0 and rmsnorm_mod.bwd_launches == 0
+
+
+_FLASH_BWD_REFUSALS = {
+    # name: how to break (q, k, v, o, lse, do) of a (2, 8, 8, 4, 2, 16) bf16 call
+    "do_shape": lambda q, k, v, o, lse, do: (q, k, v, o, lse, do[:, :4]),
+    "o_shape": lambda q, k, v, o, lse, do: (q, k, v, o[:1], lse, do),
+    "o_dtype": lambda q, k, v, o, lse, do: (q, k, v, o.half(), lse, do),
+    "lse_dtype": lambda q, k, v, o, lse, do: (q, k, v, o, lse.double(), do),
+    "lse_shape": lambda q, k, v, o, lse, do: (q, k, v, o, lse[:, :2], do),
+    "lse_layout": lambda q, k, v, o, lse, do: (q, k, v, o,
+                                               lse.transpose(1, 2).contiguous().transpose(1, 2),
+                                               do),
+    "lse_device": "lse_device",
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_FLASH_BWD_REFUSALS))
+def test_flash_attention_backward_refuses_bad_arguments(bad):
+    """The backward's launcher checks what it is handed (CPU tensors posing as
+    CUDA ones), before any library is loaded, and counts no launch."""
+    q, k, v = (t.bfloat16() for t in _t(*_qkv((2, 8, 8, 4, 2, 16), 12)))
+    o, do = torch.zeros_like(q), torch.ones_like(q)
+    lse = torch.zeros(2, 4, 8)
+    if bad == "lse_device":
+        args = _cuda(q, k, v, o) + _cuda(lse, cls=FakeCuda1) + _cuda(do)
+    else:
+        args = _cuda(*_FLASH_BWD_REFUSALS[bad](q, k, v, o, lse, do))
+    with pytest.raises(ValueError):
+        flash_mod.launch_backward(*args, True, 0, 0.0)
+    assert flash_mod.bwd_launches == 0
+
+
+@pytest.mark.parametrize("bad", ["shape", "device"])
+def test_rmsnorm_backward_refuses_bad_arguments(bad):
+    x, w = _cuda(torch.zeros(3, 8), torch.ones(8))
+    dy = _cuda(torch.zeros(3, 4))[0] if bad == "shape" else torch.zeros(3, 8)
+    with pytest.raises(ValueError, match="dy"):
+        rmsnorm_mod.launch_backward(x, w, dy, 1e-6, 0, 0, 0)
+    assert rmsnorm_mod.bwd_launches == 0
+
+
+# ------------------------------------------------------------- backwards
+
+BWD_CASES = CASES + [(1, 64, 64, 2, 2, 32, True, 0, 20.0), (1, 96, 128, 4, 2, 32, True, 0, 20.0)]
+
+
+def _case_kw(case):
+    return dict(causal=case[6], window=case[7], softcap=case[8] if len(case) > 8 else 0.0)
+
+
+def _jax_scores(q, k, causal, window, softcap):
+    """The reference's masked, scaled (and capped) scores (B, H, Sq, Skv), jnp."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    kr = jnp.repeat(k, H // KV, axis=2)
+    s = jnp.einsum("bqhd,bshd->bhqs", q, kr) / np.sqrt(hd)
+    if softcap:
+        s = jnp.tanh(s / softcap) * softcap
+    qpos = jnp.arange(Sq)[:, None] + (Skv - Sq)
+    kpos = jnp.arange(Skv)[None, :]
+    mask = jnp.ones((Sq, Skv), bool)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return jnp.where(mask, s, -1e30)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[str(c) for c in BWD_CASES])
+def test_lse_reference_matches_jax_logsumexp(case):
+    scale = 3.0 if len(case) > 8 else 1.0
+    q, k, _ = _qkv(case, 14, scale)
+    kw = _case_kw(case)
+    got = ref.flash_attention_lse_reference(*_t(q, k), **kw).numpy()
+    want = np.asarray(jax.nn.logsumexp(_jax_scores(jnp.asarray(q), jnp.asarray(k), **kw),
+                                       axis=-1))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=[str(c) for c in BWD_CASES])
+def test_attention_backward_reference_matches_jax_vjp(case):
+    """dq, dk and dv of the plain backward (from o and lse) against jax.vjp of the
+    reference's Pallas kernel (interpret mode) and torch autograd of
+    mha_reference; f32 <= 1e-5, 1e-4 when capped."""
+    capped = len(case) > 8
+    scale, tol = (3.0, 1e-4) if capped else (1.0, 1e-5)
+    q, k, v = _qkv(case, 15, scale)
+    do = np.random.default_rng(16).standard_normal(q.shape).astype(np.float32)
+    kw = _case_kw(case)
+    tq, tk, tv = _t(q, k, v)
+    o = ref.mha_reference(tq, tk, tv, **kw)
+    lse = ref.flash_attention_lse_reference(tq, tk, **kw)
+    got = ref.flash_attention_bwd_reference(tq, tk, tv, o, lse, torch.from_numpy(do), **kw)
+
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, block_q=32, block_kv=32,
+                                               interpret=True, **kw),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want_jax = vjp(jnp.asarray(do))
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    want_torch = torch.autograd.grad(ref.mha_reference(*leaves, **kw), leaves,
+                                     torch.from_numpy(do))
+    for name, g, wj, wt in zip(("dq", "dk", "dv"), got, want_jax, want_torch):
+        assert g.shape == wt.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(wj), atol=tol, rtol=tol, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), wt.numpy(), atol=tol, rtol=tol, err_msg=name)
+
+
+def test_attention_function_on_cpu_is_the_plain_backward():
+    case = CASES[2]
+    q, k, v = _t(*_qkv(case, 17))
+    do = torch.from_numpy(np.random.default_rng(18).standard_normal(q.shape)
+                          .astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, causal=True, window=48),
+                              leaves, do)
+    o = ref.mha_reference(q, k, v, causal=True, window=48)
+    lse = ref.flash_attention_lse_reference(q, k, causal=True, window=48)
+    want = ref.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True, window=48)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES, ids=str)
+def test_rmsnorm_backward_reference_matches_jax_grad(shape):
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal(shape[-1:]) * 0.1 + 1).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    dx, dw = ref.rmsnorm_bwd_reference(*_t(x, w, dy))
+    _, vjp = jax.vjp(jref.rmsnorm_reference, jnp.asarray(x), jnp.asarray(w))
+    jdx, jdw = vjp(jnp.asarray(dy))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), atol=1e-5, rtol=1e-5)
+    xt, wt = (a.requires_grad_() for a in _t(x, w))
+    gx, gw = torch.autograd.grad(ops.rmsnorm(xt, wt), (xt, wt), torch.from_numpy(dy))
+    assert torch.equal(gx, dx) and torch.equal(gw, dw)
+
+
+def test_rmsnorm_backward_reference_keeps_dtypes():
+    x = torch.randn(3, 64, dtype=torch.bfloat16)
+    dx, dw = ref.rmsnorm_bwd_reference(x, torch.ones(64), torch.ones(3, 64, dtype=torch.bfloat16))
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
 
 
 # --------------------------------------------------------------- C interface
@@ -329,10 +482,19 @@ def test_ctypes_bindings_match_the_c_declarations():
         assert declared[name] == (restype, list(argtypes)), name
 
 
-def test_rmsnorm_argument_block_matches_the_c_struct():
-    body = re.search(r"struct RmsnormCall \{([^}]*)\};",
-                     (CSRC / "rmsnorm.cu").read_text()).group(1)
+def _c_struct_fields(source: str, struct: str) -> list:
+    body = re.search(r"struct " + struct + r" \{([^}]*)\};",
+                     (CSRC / source).read_text()).group(1)
     fields = [re.match(r"(.+?)\s*(\w+)$", " ".join(line.split(";")[0].split())).groups()
               for line in body.strip().splitlines() if ";" in line]
-    c_fields = [(name, _c_type(typ.replace(" *", "*"))) for typ, name in fields]
-    assert c_fields == list(_build.RmsnormCall._fields_)
+    return [(name, _c_type(typ.replace(" *", "*"))) for typ, name in fields]
+
+
+def test_rmsnorm_argument_block_matches_the_c_struct():
+    assert _c_struct_fields("rmsnorm.cu", "RmsnormCall") == list(_build.RmsnormCall._fields_)
+
+
+@pytest.mark.parametrize("source,struct", [("rmsnorm_bwd.cu", "RmsnormBwdCall"),
+                                           ("flash_attention_bwd.cu", "FlashBwdCall")])
+def test_backward_argument_blocks_match_the_c_structs(source, struct):
+    assert _c_struct_fields(source, struct) == list(getattr(_build, struct)._fields_)

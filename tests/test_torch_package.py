@@ -13,7 +13,9 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
+           ROOT / "examples" / "train_e2e_torch.py",
+           ROOT / "tools" / "profile_serve_torch.py", ROOT / "tools" / "profile_train_torch.py"]
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 FORBIDDEN_CALLS = ("scaled_dot_product_attention", "rms_norm", "compile")
 
@@ -70,7 +72,9 @@ def test_package_imports_with_jax_blocked():
             f"sys.path.insert(0, {str(ROOT / 'src')!r}); "
             "import repro_torch.models.lm, repro_torch.models.convert, "
             "repro_torch.kernels.ops, repro_torch.configs, "
-            "repro_torch.parallel.trainstep; "
+            "repro_torch.parallel.trainstep, repro_torch.optim.adamw, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint.store, "
+            "repro_torch.runtime.trainer; "
             "print(len(repro_torch.configs.all_configs()))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
