@@ -16,10 +16,16 @@ What it does, one JSON line per phase on standard output:
            tile edges (fp32, bf16, fp16) and at the shapes the serving and training
            paths give it: the forwards, the attention forward's lse, and the two
            backwards (dq, dk, dv; dx, dw); records which flash variant each case
-           launched, shows that a call the wgmma kernel cannot take raises instead
-           of running another variant, and times kernel, plain version, one library
-           call (a yardstick only; the port never calls it) and the card's bound;
-           RMSNorm at the decode shape also device-only, from a CUDA graph;
+           launched, forward and backward (one rule: 16-bit head_dim 64/128 wgmma,
+           other 16-bit mma.sync, fp32 scalar), shows that a call either wgmma kernel
+           cannot take raises instead of running another variant, that two backward
+           calls on the same inputs give dk, dv, dx and dw bit for bit (dq within
+           tolerance: its sum runs through atomics), and times kernel, plain version,
+           one library call (a yardstick only; the port never calls it; for the
+           RMSNorm backward three readings in turns with the kernel, and the names of
+           the kernels it launches) and the card's bound, and the device time of each
+           kernel an attention backward call launches; RMSNorm at the decode shape
+           also device-only, from a CUDA graph;
   small    a reduced fp32 model on the card (through the kernels) against the same
            weights on the CPU (plain versions): prefill + decode, then three train
            steps (loss, grad norm, every parameter, exact launch counts per step)
@@ -44,9 +50,11 @@ it never carries on on the CPU.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -81,6 +89,12 @@ FLASH_TILE_EDGE_CASES = [
     (2, 255, 383, 28, 4, 128, True, 0),    # Sq < Skv, both ragged, qwen2-7b's heads
     (1, 300, 300, 4, 1, 64, True, 100),    # a window that spans tiles
     (2, 200, 200, 8, 8, 128, False, 0),    # bidirectional, ragged
+]
+# Cases across the wgmma backward's tiles (128 keys; 64 query rows at head_dim 128,
+# 128 at 64): ragged GQA with Sq < Skv, and a head_dim 64 window spanning two key tiles.
+FLASH_BWD_EDGE_CASES = [
+    (2, 191, 321, 28, 4, 128, True, 0),
+    (2, 260, 260, 8, 2, 64, True, 150),
 ]
 # softcap 20 on scores scaled by 3 x 3, as the reference's test has it
 FLASH_SOFTCAP_CASES = [(1, 64, 64, 2, 2, 32, True, 0), (1, 200, 200, 4, 2, 128, True, 0)]
@@ -332,8 +346,8 @@ def run(args, torch) -> None:
         grads = flash_mod.launch_backward(q, k, v, o, lse, do, causal, window, softcap)
         after = ops.flash_bwd_launches_by_variant()
         ran = [key for key in after if after[key] != before[key]]
-        want_variant = "scalar" if fp32 else "mma_sync"
-        if ran != [want_variant]:
+        want_variant = expected_variant(dtype, case[5])
+        if ran != [want_variant] or flash_mod.bwd_variant(dtype, case[5]) != want_variant:
             fail(f"flash backward {case} {dtype}: launched {ran}, expected [{want_variant!r}]")
         kw = dict(causal=causal, window=window, softcap=softcap)
         qf, kf, vf = q.float(), k.float(), v.float()
@@ -352,7 +366,7 @@ def run(args, torch) -> None:
 
     flash_bwd_cases = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for case in FLASH_CASES + FLASH_TILE_EDGE_CASES:
+        for case in FLASH_CASES + FLASH_TILE_EDGE_CASES + FLASH_BWD_EDGE_CASES:
             flash_bwd_cases.append(flash_bwd_case(case, dtype))
         for case in FLASH_SOFTCAP_CASES:
             flash_bwd_cases.append(flash_bwd_case(case, dtype, scale=3.0, softcap=20.0))
@@ -383,7 +397,38 @@ def run(args, torch) -> None:
              f"raised {raised!r}, output touched: {not bool(torch.isnan(o).all())}")
     refusal = {"case": list(case), "dtype": "torch.bfloat16", "q_offset_bytes": 2,
                "code": code, "raised": raised}
-    del q, k, v, q_off, o
+
+    # the same for the backward's wgmma kernel: its launcher refuses before it
+    # launches anything, and dq, dk, dv stay untouched
+    o, lse = flash_mod.launch_forward(q, k, v, True, 0, 0.0, with_lse=True)
+    do = randn(q.shape, torch.bfloat16)
+    grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    delta, dq_acc = flash_mod._bwd_scratch("sm90_wgmma", q)
+    call = _build.FlashBwdCall(
+        q=q_off.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
+        dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
+        dq_acc=dq_acc.data_ptr(), dq=grads[0].data_ptr(), dk=grads[1].data_ptr(),
+        dv=grads[2].data_ptr(), stream=torch.cuda.current_stream().cuda_stream,
+        B=case[0], Sq=case[1], Skv=case[2], H=case[3], KV=case[4], hd=case[5], causal=1,
+        window=0, softcap=0.0, dtype=_build.DTYPE_CODES[torch.bfloat16], device=0)
+    for name, t in zip(_build.FLASH_BWD_TENSORS, (q_off, k, v, o, do, *grads)):
+        for i, part in enumerate(("sb", "ss", "sh")):
+            setattr(call, f"{name}_{part}", t.stride(i))
+    torch.cuda.synchronize()
+    code = lib.repro_flash_attention_bwd(ctypes.addressof(call))
+    torch.cuda.synchronize()
+    try:
+        _build.check(code, "flash_attention backward")
+        raised = ""
+    except RuntimeError as exc:
+        raised = str(exc)
+    untouched = all(bool(torch.isnan(t).all()) for t in grads)
+    if code != -3 or not raised or not untouched:
+        fail(f"misaligned q, backward: launcher returned {code} (want -3, a refusal), "
+             f"raised {raised!r}, gradients untouched: {untouched}")
+    bwd_refusal = {"case": list(case), "dtype": "torch.bfloat16", "q_offset_bytes": 2,
+                   "code": code, "raised": raised}
+    del q, k, v, q_off, o, lse, do, grads, delta, dq_acc
 
     rms_cases = []
     for dtype, tol in ((torch.float32, TOL_RMSNORM_FP32),
@@ -401,7 +446,10 @@ def run(args, torch) -> None:
     rms_bwd_cases = []
     for dtype, tol in ((torch.float32, TOL_RMSNORM_BWD_FP32),
                        (torch.bfloat16, TOL_16BIT), (torch.float16, TOL_16BIT)):
-        for shape in RMSNORM_SHAPES + [(3, 3584), (5, 7, 100), (2, 1027), (8192, 3584)]:
+        # (2, 1027): the row pipeline at 4 packs a thread; (2, 2051): past its reach,
+        # the block-per-row kernel
+        for shape in RMSNORM_SHAPES + [(3, 3584), (5, 7, 100), (2, 1027), (2, 2051),
+                                       (8192, 3584)]:
             for wdtype in {dtype, torch.float32}:
                 x = randn(shape, dtype)
                 w = randn(shape[-1:], wdtype, 0.1) + 1
@@ -480,6 +528,29 @@ def run(args, torch) -> None:
             q, k, v, cfg.causal, 0, 0.0, with_lse=False), 20)}
     bwd_ms = time_ms(lambda: flash_mod.launch_backward(
         q, k, v, o, lse, do, cfg.causal, 0, 0.0), 10)
+    # two calls on the same inputs: dk and dv bit for bit (summed in registers in a
+    # fixed order); dq within tolerance (the wgmma kernel sums it with atomics)
+    first = flash_mod.launch_backward(q, k, v, o, lse, do, cfg.causal, 0, 0.0)
+    again = flash_mod.launch_backward(q, k, v, o, lse, do, cfg.causal, 0, 0.0)
+    bwd_repeat = {"dk_bit_exact": bool(torch.equal(first[1], again[1])),
+                  "dv_bit_exact": bool(torch.equal(first[2], again[2])),
+                  "dq_bit_exact": bool(torch.equal(first[0], again[0])),
+                  "dq_max_err_share": compare_share("flash backward repeat dq", again[0],
+                                                    first[0], TOL_16BIT)}
+    if not (bwd_repeat["dk_bit_exact"] and bwd_repeat["dv_bit_exact"]):
+        fail(f"flash backward repeat at the training shape: {bwd_repeat}")
+    del first, again
+    # the device time of each kernel a backward call launches (one profiled call)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_mod.launch_backward(q, k, v, o, lse, do, cfg.causal, 0, 0.0)
+        torch.cuda.synchronize()
+    bwd_kernel_ms: dict = {}
+    for e in prof.events():
+        name = re.search(r"flash_bwd\w*", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name:
+            bwd_kernel_ms[name.group()] = (bwd_kernel_ms.get(name.group(), 0.0)
+                                           + e.time_range.elapsed_us() / 1e3)
     bwd_plain_ms = time_ms(lambda: ops.flash_attention_bwd_reference(
         q, k, v, o, lse, do, causal=cfg.causal), 2, 1)
     torch.cuda.empty_cache()
@@ -541,14 +612,35 @@ def run(args, torch) -> None:
     y_lib = F.rms_norm(xr, (d,), wr, cfg.norm_eps)
     rms_bwd_bounds = {"bytes": 2.0 * (3 * x.numel() + 2 * w.numel()) / PEAK_BYTES_PER_S * 1e3,
                       "operations": 10.0 * x.numel() / PEAK_FP32_FLOPS * 1e3}
+    # the kernel and its library yardstick (autograd of F.rms_norm) in turns, three
+    # readings each: the yardstick read 0.134 ms in one run and 0.41-0.45 in others
+    rms_bwd_ms, rms_bwd_lib_ms = [], []
+    for _ in range(3):
+        rms_bwd_ms.append(time_ms(lambda: rms_mod.launch_backward(
+            x, w, dy, cfg.norm_eps, *bcodes), 50))
+        rms_bwd_lib_ms.append(time_ms(lambda: torch.autograd.grad(
+            y_lib, (xr, wr), dy, retain_graph=True), 50))
+    # which kernels the yardstick launches (one profiled call)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(y_lib, (xr, wr), dy, retain_graph=True)
+        torch.cuda.synchronize()
+    lib_kernels = sorted({e.name for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA})
     rms_bwd_entry = {
         "shape": [rows, d],
-        "ms": time_ms(lambda: rms_mod.launch_backward(x, w, dy, cfg.norm_eps, *bcodes), 50),
+        "ms": float(np.median(rms_bwd_ms)), "ms_readings": rms_bwd_ms,
         "plain_ms": time_ms(lambda: ops.rmsnorm_bwd_reference(x, w, dy, cfg.norm_eps), 20),
-        "library_ms": time_ms(lambda: torch.autograd.grad(y_lib, (xr, wr), dy,
-                                                          retain_graph=True), 50),
+        "library_ms": float(np.median(rms_bwd_lib_ms)),
+        "library_ms_readings": rms_bwd_lib_ms, "library_kernels": lib_kernels,
         "bound_ms": max(rms_bwd_bounds.values()),
         "bound_by": max(rms_bwd_bounds, key=rms_bwd_bounds.get)}
+    first = rms_mod.launch_backward(x, w, dy, cfg.norm_eps, *bcodes)
+    again = rms_mod.launch_backward(x, w, dy, cfg.norm_eps, *bcodes)
+    rms_bwd_entry["repeat_bit_exact"] = {"dx": bool(torch.equal(first[0], again[0])),
+                                         "dw": bool(torch.equal(first[1], again[1]))}
+    if not all(rms_bwd_entry["repeat_bit_exact"].values()):
+        fail(f"rmsnorm backward repeat: {rms_bwd_entry['repeat_bit_exact']}")
+    del first, again
     main_rms_bwd = next(
         c for c in rms_bwd_cases
         if c["shape"] == [rows, d] and c["dtype"] == str(bf16) and c["w_dtype"] == str(bf16))
@@ -592,7 +684,7 @@ def run(args, torch) -> None:
                                        for c in rms_bwd_cases)},
         "flash_attention_bwd": {
             "name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
             "replaces": "src/repro/kernels/flash_attention.py:102",
             "launches": 0, "dtype": "bfloat16",
             "shape": {"q": [B_TRAIN, S_TRAIN, H, hd], "kv": [B_TRAIN, S_TRAIN, KV, hd],
@@ -606,6 +698,7 @@ def run(args, torch) -> None:
             "library_ms": bwd_lib_ms,
             "tflops": bwd_flops / (bwd_ms * 1e-3) / 1e12,
             "variant": train_bwd_entry["variant"], "launches_by_variant": {},
+            "repeat": bwd_repeat, "kernel_ms": bwd_kernel_ms,
             "worst_err_all_cases": max(max(c["max_err_share"].values())
                                        for c in flash_bwd_cases)},
     }
@@ -616,7 +709,8 @@ def run(args, torch) -> None:
                        "bwd_fp32_share": TOL_BWD_FP32,
                        "rmsnorm_bwd_fp32_share": TOL_RMSNORM_BWD_FP32,
                        "lse_fp32_share": TOL_LSE_FP32, "lse_16bit_share": TOL_LSE_16BIT},
-        "flash_cases": flash_cases, "flash_refusal": refusal, "rmsnorm_cases": rms_cases,
+        "flash_cases": flash_cases, "flash_refusal": refusal,
+        "flash_bwd_refusal": bwd_refusal, "rmsnorm_cases": rms_cases,
         "flash_bwd_cases": flash_bwd_cases, "rmsnorm_bwd_cases": rms_bwd_cases,
         "kernels": list(kernels.values())}
     emit(report["kernels_checked"])
@@ -875,7 +969,7 @@ def run(args, torch) -> None:
         if path_variants["train"]["sm90_wgmma"] != TRAIN_STEPS * L_:
             fail(f"train: flash forward launches by variant {path_variants['train']}: "
                  "all must be the wgmma kernel")
-        if path_bwd_variants["train"]["mma_sync"] != TRAIN_STEPS * L_:
+        if path_bwd_variants["train"]["sm90_wgmma"] != TRAIN_STEPS * L_:
             fail(f"train: flash backward launches by variant {path_bwd_variants['train']}")
         losses = [h["loss"] for h in hist]
         if [h["step"] for h in hist] != list(range(TRAIN_STEPS)) or not all(

@@ -120,7 +120,7 @@ FLASH_BWD_TENSORS = ("q", "k", "v", "o", "do", "dq", "dk", "dv")
 class FlashBwdCall(ctypes.Structure):
     """``struct FlashBwdCall`` of ``csrc/flash_attention_bwd.cu``."""
     _fields_ = ([(n, _P) for n in ("q", "k", "v", "o", "dout", "lse", "delta",
-                                   "dq", "dk", "dv", "stream")]
+                                   "dq_acc", "dq", "dk", "dv", "stream")]
                 + [(n, _I) for n in ("B", "Sq", "Skv", "H", "KV", "hd")]
                 + [(f"{t}_{s}", _LL) for t in FLASH_BWD_TENSORS
                    for s in ("sb", "ss", "sh")]

@@ -1,11 +1,14 @@
-// Shared between the fused attention forward's two 16-bit kernels
-// (flash_attention.cu: mma.sync; flash_attention_sm90.cu: TMA + wgmma).
+// Shared between the fused attention kernels: the forward's (flash_attention.cu:
+// mma.sync and scalar; flash_attention_sm90.cu: TMA + wgmma) and the backward's
+// (flash_attention_bwd.cu: mma.sync and scalar; flash_attention_bwd_sm90.cu: TMA +
+// wgmma).
 //
-// Both replace the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel,
-// launched by _flash_fwd_kernel_call) and compute its contract, stated in
-// flash_attention.cu.  This header holds what the two must agree on: the call's
-// parameters, the kv range a query tile can see, the scalar score rule and the
-// choice of kernel by type and head_dim.
+// They replace the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel,
+// launched by _flash_fwd_kernel_call, and the VJP _flash_vjp_bwd takes of
+// mha_reference) and compute its contract, stated in flash_attention.cu.  This
+// header holds what they must agree on: the calls' parameters, the kv range a query
+// tile can see and the query range a key tile can see, the scalar score rule and the
+// choice of kernel by type and head_dim (one rule, forward and backward).
 //
 // Bound on this card: operations (see flash_attention.cu); nothing here moves data.
 
@@ -33,7 +36,39 @@ struct Params {
   float softcap, scale;
 };
 
-// Kernel variants, as repro_flash_attention_variant reports them.
+// One backward call: the forward's inputs, its output o and per-row lse, dO, and the
+// gradients.  delta is float32 scratch: (B, H, Sq) D = rowsum(dO o O) for the
+// scalar and mma.sync kernels; for the wgmma kernel D then lse * log2(e), each
+// (B, H, sq_pad(Sq)), rows past Sq padded (D 0, lse +inf), and dq_acc its float32
+// dq accumulator of B * H * sq_pad(Sq) * hd floats, laid out as that kernel states
+// (unused by the others).
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;  // (B, H, Sq), contiguous
+  float* delta;
+  float* dq_acc;
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, Sq, Skv, H, KV;
+  // strides in elements of (batch, sequence, head); the head_dim stride is 1
+  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
+  long long do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
+  int causal, window;
+  float softcap, scale;
+};
+
+// The wgmma backward's padded query count: every query tile it loads (64 or 128
+// rows) lies inside it.
+constexpr int kSqPad = 128;
+__host__ __device__ inline int sq_pad(int sq) { return (sq + kSqPad - 1) / kSqPad * kSqPad; }
+
+// Kernel variants, as repro_flash_attention_variant and
+// repro_flash_attention_bwd_variant report them.
 enum Variant { kScalar = 0, kMmaSync = 1, kSm90Wgmma = 2 };
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The split by shape:
@@ -63,6 +98,17 @@ __device__ __forceinline__ void kv_range(const P& p, int q0, int rows, int bn, i
   }
 }
 
+// The query rows [lo, hi) that can see some key of [n0, n0 + bn); lo is rounded down
+// to a multiple of `bm`.  Empty when hi <= lo.
+template <typename P>
+__device__ __forceinline__ void q_range(const P& p, int n0, int bn, int bm, int& lo, int& hi) {
+  const int offset = p.Skv - p.Sq;
+  lo = p.causal ? max(0, n0 - offset) : 0;
+  lo = (lo / bm) * bm;
+  hi = p.Sq;
+  if (p.window > 0) hi = min(hi, n0 + bn - 1 + p.window - offset);
+}
+
 __device__ __forceinline__ float masked_score(const Params& p, float raw, int qpos, int kpos) {
   float x = raw * p.scale;
   if (p.softcap != 0.f) x = tanhf(x / p.softcap) * p.softcap;
@@ -76,6 +122,10 @@ __device__ __forceinline__ float masked_score(const Params& p, float raw, int qp
 // cudaError_t (> 0), or a negative code: -1 head_dim not compiled in, -3 a tensor
 // map could not be encoded, -4 the driver's cuTensorMapEncodeTiled is unavailable.
 int launch_sm90(const Params& p, int hd, int dtype, cudaStream_t st);
+
+// The TMA + wgmma backward's launcher (flash_attention_bwd_sm90.cu): D and the
+// padded lse, dk/dv with dq accumulated in dq_acc, then dq.  The same codes.
+int launch_bwd_sm90(const BwdParams& p, int hd, int dtype, cudaStream_t st);
 
 // Makes `dev` the current device for the lifetime of the guard when it is not
 // already (the runtime launches on the current device).

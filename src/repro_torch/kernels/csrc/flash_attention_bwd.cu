@@ -39,7 +39,13 @@
 // Pass A and pass B each recompute s and dp, so the design spends 14 * hd flops per
 // pair instead of 10.  fp32 inputs take scalar kernels of the same two-pass shape (a
 // warp per key or per query row, a lane per pair), for the tight comparison with the
-// plain version, not for speed.  TMA and wgmma wait for a later version.
+// plain version, not for speed.
+//
+// The C entry point below picks the kernels by type and head_dim with the forward's
+// rule (flash::variant_for): 16-bit inputs at head_dim 64 and 128 -- the training
+// path's shapes -- take the one-pass TMA + wgmma kernel of flash_attention_bwd_sm90.cu
+// (dq summed by atomics); the other 16-bit head_dims (16, 32, 256) the mma.sync passes
+// of this file; float32 the scalar passes.  A split by shape, not a fallback.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -52,6 +58,7 @@
 namespace {
 
 using flash::allow_smem;
+using flash::BwdParams;
 using flash::cp_async_commit;
 using flash::cp_async_wait;
 using flash::kv_range;
@@ -62,26 +69,8 @@ using flash::load_q_fragment;
 using flash::load_tile_async;
 using flash::Mma;
 using flash::pack_a;
+using flash::q_range;
 using flash::warp_sum;
-
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  const float* lse;  // (B, H, Sq), contiguous
-  float* delta;      // (B, H, Sq), contiguous scratch
-  void* dq;
-  void* dk;
-  void* dv;
-  int B, Sq, Skv, H, KV;
-  // strides in elements of (batch, sequence, head); the head_dim stride is 1
-  long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
-  long long do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
-  int causal, window;
-  float softcap, scale;
-};
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -111,17 +100,6 @@ __device__ __forceinline__ void prob_and_grad(const BwdParams& p, bool ok, float
   }
   pe = ok ? __expf(x - lse) : 0.f;
   ds = pe * (dp - dlt) * capd;
-}
-
-// The query rows [lo, hi) that can see some key of [n0, n0 + bn); lo is rounded down
-// to a multiple of `bm`.  Empty when hi <= lo.
-__device__ __forceinline__ void q_range(const BwdParams& p, int n0, int bn, int bm, int& lo,
-                                        int& hi) {
-  const int offset = p.Skv - p.Sq;
-  lo = p.causal ? max(0, n0 - offset) : 0;
-  lo = (lo / bm) * bm;
-  hi = p.Sq;
-  if (p.window > 0) hi = min(hi, n0 + bn - 1 + p.window - offset);
 }
 
 // ---------------------------------------------------------------------------
@@ -426,8 +404,9 @@ __global__ void __launch_bounds__(BM * 2) flash_bwd_dq_mma_kernel(const BwdParam
   }
 }
 
-// Tile shapes by head_dim: pass A (keys per block, query rows per step, warps per 16
-// keys), pass B (query rows per block, keys per step).  Chosen so the accumulators
+// Tile shapes by head_dim (16, 32 and 256: 64 and 128 take the wgmma kernel): pass A
+// (keys per block, query rows per step, warps per 16 keys), pass B (query rows per
+// block, keys per step).  Chosen so the accumulators
 // fit the register file: at head_dim 256 dk and dv of 16 keys would take 256 fp32
 // registers a thread, so two warps share those keys.
 template <typename T, int HD, int BN_A, int BMQ_A, int HSPLIT, int BM_B, int BN_B>
@@ -460,8 +439,6 @@ int dispatch_mma(const BwdParams& p, int hd, cudaStream_t st) {
   switch (hd) {
     case 16: return launch_mma<T, 16, 64, 64, 1, 64, 64>(p, st);
     case 32: return launch_mma<T, 32, 64, 64, 1, 64, 64>(p, st);
-    case 64: return launch_mma<T, 64, 64, 64, 1, 64, 64>(p, st);
-    case 128: return launch_mma<T, 128, 64, 32, 1, 64, 64>(p, st);
     case 256: return launch_mma<T, 256, 64, 32, 2, 64, 32>(p, st);
     default: return -1;
   }
@@ -681,8 +658,10 @@ cudaError_t launch_delta(const BwdParams& p, int hd, cudaStream_t st) {
 
 // One backward call's arguments, passed as one block (there are too many for a plain
 // argument list).  dtype codes: 0 = float32, 1 = bfloat16, 2 = float16, shared by
-// q, k, v, o, dout, dq, dk and dv.  lse is the forward's (B, H, Sq) float32 output,
-// delta a (B, H, Sq) float32 scratch; both contiguous.  Strides in elements, head_dim
+// q, k, v, o, dout, dq, dk and dv.  lse is the forward's (B, H, Sq) float32 output;
+// delta and dq_acc are float32 scratch as flash::BwdParams states (flash_attention.cuh:
+// for the wgmma kernel 2 x (B, H, sq_pad(Sq)) and (B, H, sq_pad(Sq), hd), else
+// (B, H, Sq) and unused); all contiguous.  Strides in elements, head_dim
 // stride 1, 16-bit rows on 16-byte boundaries (the Python wrapper checks both).
 struct FlashBwdCall {
   const void* q;
@@ -692,6 +671,7 @@ struct FlashBwdCall {
   const void* dout;
   const void* lse;
   void* delta;
+  void* dq_acc;
   void* dq;
   void* dk;
   void* dv;
@@ -734,16 +714,16 @@ struct FlashBwdCall {
 };
 
 // The kernels a backward call of that type and head_dim launches: 0 scalar,
-// 1 mma.sync; -1 if none is compiled in.
+// 1 mma.sync, 2 TMA + wgmma (the forward's rule); -1 if none is compiled in.
 extern "C" int repro_flash_attention_bwd_variant(int hd, int dtype) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256) return -1;
-  if (dtype == 0) return 0;
-  return (dtype == 1 || dtype == 2) ? 1 : -1;
+  return flash::variant_for(hd, dtype);
 }
 
-// Launches D, pass A and pass B on `stream` of CUDA device `device`.  Returns 0, a
-// cudaError_t (> 0) from a launch, -1 for a head_dim that is not compiled in, -2 for
-// an unknown type.  No variant ever stands in for another.
+// Launches the backward's kernels on `stream` of CUDA device `device`: D, pass A and
+// pass B, or the wgmma kernel's prep, one pass and dq cast.  Returns 0, a cudaError_t
+// (> 0) from a launch, -1 for a head_dim that is not compiled in, -2 for an unknown
+// type, -3 / -4 when the wgmma kernel's tensor maps cannot be made.  No variant ever
+// stands in for another.
 extern "C" int repro_flash_attention_bwd(const FlashBwdCall* c) {
   if (c->B <= 0 || c->H <= 0 || c->Sq <= 0 || c->Skv <= 0) return 0;
   if (repro_flash_attention_bwd_variant(c->hd, c->dtype) < 0)
@@ -752,6 +732,7 @@ extern "C" int repro_flash_attention_bwd(const FlashBwdCall* c) {
   p.q = c->q; p.k = c->k; p.v = c->v; p.o = c->o; p.dout = c->dout;
   p.lse = static_cast<const float*>(c->lse);
   p.delta = static_cast<float*>(c->delta);
+  p.dq_acc = static_cast<float*>(c->dq_acc);
   p.dq = c->dq; p.dk = c->dk; p.dv = c->dv;
   p.B = c->B; p.Sq = c->Sq; p.Skv = c->Skv; p.H = c->H; p.KV = c->KV;
   p.q_sb = c->q_sb; p.q_ss = c->q_ss; p.q_sh = c->q_sh;
@@ -768,6 +749,8 @@ extern "C" int repro_flash_attention_bwd(const FlashBwdCall* c) {
   flash::DeviceGuard guard(c->device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);
+  if (flash::variant_for(c->hd, c->dtype) == flash::kSm90Wgmma)
+    return flash::launch_bwd_sm90(p, c->hd, c->dtype, st);
   cudaError_t e;
   switch (c->dtype) {
     case 0: e = launch_delta<float>(p, c->hd, st); break;

@@ -10,16 +10,22 @@
 //
 // Bound on this card: bytes.  x and dy are read and dx written once (~10 flops an
 // element), far below the ~295 flop/byte ridge.  What the design does:
-//   * the row layout of the forward (rmsnorm.cu): a warp per row for d <= 1024, a
-//     block per row above, 16-byte packs where d and the pointers allow it; the two
-//     row sums (x^2 and x*w*dy) are reduced together, and the second pass re-reads
-//     the row from L1;
+//   * rows wider than 1024 (d_model: the training path's shape) take the row
+//     pipeline: a block per worker, each thread owning the same PPT 16-byte packs of
+//     every row of the worker's run.  Its packs of x and dy stay in registers from
+//     the two row sums to dx (no second read), the next row's packs are loaded before
+//     the current row is reduced (two rows in flight per thread), the two sums (x^2
+//     and x*w*dy) go through one barrier a row (the warps' partials in double-buffered
+//     shared slots, summed by every thread in warp order), and w's packs and the dw
+//     partial stay in registers across the run;
+//   * rows of at most 1024 take the forward's layout (rmsnorm.cu): a warp per row,
+//     the dw partial in shared memory, the second pass re-reading the row from L1
+//     (as do rows too wide for the pipeline's registers, a block per row);
 //   * dw without atomics, in a fixed order: each worker (warp or block) takes a
-//     contiguous run of rows and keeps its dw partial in shared memory (each thread
-//     owns the columns it reads, so no two threads touch one entry), writes it once
-//     as one row of an fp32 partials buffer, and a second small kernel sums the
-//     partials column by column in worker order.  The result does not depend on the
-//     timing of the blocks, so it is the same from run to run.
+//     contiguous run of rows, writes its dw partial once as one row of an fp32
+//     partials buffer, and a second small kernel sums the partials column by column
+//     in worker order.  The result does not depend on the timing of the blocks, so
+//     dx and dw are the same bit for bit from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -38,6 +44,7 @@ using rmsnorm::warp_sum;
 
 constexpr int kWarpsPerBlock = 8;    // workers of a block when a warp takes a row
 constexpr int kMaxBlockThreads = 512;
+constexpr int kMaxPacksPerThread = 4;  // the row pipeline's reach: 2048 packs a row
 
 // One worker's rows: thread `tw` of `nt` owns the VEC-packs tw, tw + nt, ... of d.
 // WARP: the worker is warp `threadIdx.x / 32` of the block; else the whole block.
@@ -118,6 +125,101 @@ __global__ void rmsnorm_bwd_kernel(const T* __restrict__ x, const WT* __restrict
     for (int j = 0; j < VEC; ++j) pr[i + j] = acc[i + j];
 }
 
+// The row pipeline: a block per worker; thread tw owns packs tw + k * blockDim.x
+// (k < PPT) of every row, and keeps them, w's and its dw partial in registers.
+template <typename T, typename WT, int VEC, int PPT>
+__global__ void __launch_bounds__(kMaxBlockThreads)
+    rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const WT* __restrict__ w,
+                            const T* __restrict__ dy, T* __restrict__ dx,
+                            float* __restrict__ partial, int rows, int d, float eps,
+                            int rows_per_worker) {
+  __shared__ float red[2][2][kMaxBlockThreads / 32];  // [row parity][sum][warp]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int packs = d / VEC;
+  int col[PPT];
+  bool has[PPT];
+  float wf[PPT][VEC], acc[PPT][VEC];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int i = threadIdx.x + k * blockDim.x;
+    has[k] = i < packs;
+    col[k] = i * VEC;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      wf[k][j] = has[k] ? to_f<WT>(w[col[k] + j]) : 0.f;
+      acc[k][j] = 0.f;
+    }
+  }
+  using P = Pack<T, VEC>;
+  P cx[PPT], cg[PPT], nx[PPT], ng[PPT];
+  auto load = [&](long long row, P (&px)[PPT], P (&pg)[PPT]) {
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+      if (has[k]) {
+        px[k] = *reinterpret_cast<const P*>(x + row * d + col[k]);
+        pg[k] = *reinterpret_cast<const P*>(dy + row * d + col[k]);
+      }
+  };
+  const long long r_lo = (long long)blockIdx.x * rows_per_worker;
+  const long long r_hi = min((long long)rows, r_lo + rows_per_worker);
+  if (r_lo < r_hi) load(r_lo, cx, cg);
+  for (long long row = r_lo; row < r_hi; ++row) {
+    const int buf = (int)((row - r_lo) & 1);
+    if (row + 1 < r_hi) load(row + 1, nx, ng);  // in flight across this row's barrier
+    float ss = 0.f, sg = 0.f;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+      if (has[k])
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xf = to_f<T>(cx[k].v[j]);
+          ss += xf * xf;
+          sg += xf * wf[k][j] * to_f<T>(cg[k].v[j]);
+        }
+    ss = warp_sum(ss);
+    sg = warp_sum(sg);
+    if (lane == 0) {
+      red[buf][0][warp] = ss;
+      red[buf][1][warp] = sg;
+    }
+    // One barrier a row: row i + 2 writes this buffer again only after every thread
+    // has passed row i + 1's barrier, so after every thread has read it here.
+    __syncthreads();
+    ss = 0.f;
+    sg = 0.f;
+    for (int i = 0; i < nw; ++i) {
+      ss += red[buf][0][i];
+      sg += red[buf][1][i];
+    }
+    const float r = 1.0f / sqrtf(ss / (float)d + eps);
+    const float c = r * r * r * (sg / (float)d);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+      if (has[k]) {
+        P out;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xf = to_f<T>(cx[k].v[j]), gf = to_f<T>(cg[k].v[j]);
+          out.v[j] = from_f<T>(r * wf[k][j] * gf - xf * c);
+          acc[k][j] += xf * r * gf;
+        }
+        *reinterpret_cast<P*>(dx + row * d + col[k]) = out;
+      }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      cx[k] = nx[k];
+      cg[k] = ng[k];
+    }
+  }
+  float* pr = partial + (long long)blockIdx.x * d;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)
+    if (has[k])
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) pr[col[k] + j] = acc[k][j];
+}
+
 // dw[col] = the partials' column sum, in worker order.
 template <typename WT>
 __global__ void rmsnorm_dw_sum_kernel(const float* __restrict__ partial, WT* __restrict__ dw,
@@ -144,6 +246,14 @@ cudaError_t launch(const void* x, const void* w, const void* dy, void* dx, void*
     const int smem = kWarpsPerBlock * d * (int)sizeof(float);  // <= 32 KB
     kern<<<workers / kWarpsPerBlock, kWarpsPerBlock * 32, smem, st>>>(
         xp, wp, gp, dxp, partial, rows, d, eps, rows_per_worker);
+  } else if (d / VEC <= kMaxPacksPerThread * kMaxBlockThreads) {
+    const int packs = d / VEC;
+    const int ppt = packs <= kMaxBlockThreads ? 1 : packs <= 2 * kMaxBlockThreads ? 2 : 4;
+    const int threads = ((packs + ppt - 1) / ppt + 31) / 32 * 32;
+    auto kern = ppt == 1   ? rmsnorm_bwd_rows_kernel<T, WT, VEC, 1>
+                : ppt == 2 ? rmsnorm_bwd_rows_kernel<T, WT, VEC, 2>
+                           : rmsnorm_bwd_rows_kernel<T, WT, VEC, 4>;
+    kern<<<workers, threads, 0, st>>>(xp, wp, gp, dxp, partial, rows, d, eps, rows_per_worker);
   } else {
     auto kern = rmsnorm_bwd_kernel<T, WT, VEC, false>;
     const int smem = d * (int)sizeof(float);

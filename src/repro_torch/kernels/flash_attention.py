@@ -4,16 +4,16 @@ A CUDA tensor launches a kernel or raises; a CPU tensor takes the plain
 version.  A call that needs gradients goes through :class:`FlashAttention`, a
 ``torch.autograd.Function``: on the card its forward launches the forward kernel
 with the per-row log-sum-exp ``lse`` written beside the output, and its backward
-launches the backward kernels (``csrc/flash_attention_bwd.cu``: D, then dk/dv,
-then dq); on the CPU both are the plain versions of ``ref``.  A call without
+launches the backward kernels (``csrc/flash_attention_bwd_sm90.cu``: D, then one
+pass for dk, dv and dq; or ``csrc/flash_attention_bwd.cu``: D, then dk/dv, then
+dq); on the CPU both are the plain versions of ``ref``.  A call without
 gradients (serving) launches the forward kernel alone and writes no ``lse``.
 
 Which kernel a CUDA call launches is the library's own rule (``variant``,
-``bwd_variant``): forward, 16-bit inputs at head_dim 64 and 128 take the TMA +
-wgmma kernel, the other 16-bit head_dims the mma.sync kernel, float32 the scalar
-kernel; backward, 16-bit inputs the mma.sync kernels, float32 the scalar ones.  A
-variant that cannot run (a tensor map that cannot be encoded, a refused launch)
-raises; no other variant stands in for it.
+``bwd_variant``), the same forward and backward: 16-bit inputs at head_dim 64 and
+128 take the TMA + wgmma kernels, the other 16-bit head_dims the mma.sync kernels,
+float32 the scalar kernels.  A variant that cannot run (a tensor map that cannot be
+encoded, a refused launch) raises; no other variant stands in for it.
 """
 
 from __future__ import annotations
@@ -27,15 +27,19 @@ from repro_torch.kernels.ref import (flash_attention_bwd_reference,
                                      flash_attention_lse_reference, mha_reference)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-VARIANTS = ("scalar", "mma_sync", "sm90_wgmma")   # the C interface's codes 0, 1, 2
-BWD_VARIANTS = ("scalar", "mma_sync")              # codes 0, 1 of the backward
+#: the C interface's codes 0, 1, 2, forward and backward
+VARIANTS = ("scalar", "mma_sync", "sm90_wgmma")
+#: the wgmma backward pads its per-row scratch to a multiple of this many query rows
+#: (``kSqPad`` of ``csrc/flash_attention.cuh``)
+BWD_SQ_PAD = 128
 
 #: kernel launches in this process (CUDA tensors only): forward calls in all and by
-#: the kernel that ran, backward calls (each one launch of D, dk/dv and dq) likewise
+#: the kernel that ran, and backward calls likewise (one a call, whatever auxiliary
+#: kernels -- D, the dq accumulator's prep and cast -- it runs)
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 bwd_launches = 0
-bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
+bwd_launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 _fwd = None        # the library's repro_flash_attention_fwd, bound at first use
 _stream = None     # device index -> raw handle of its current stream
@@ -70,7 +74,7 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> str:
         if code < 0:
             raise ValueError(f"flash_attention: no backward kernel for {dtype} at "
                              f"head_dim {hd}")
-        _bwd_variant[key] = BWD_VARIANTS[code]
+        _bwd_variant[key] = VARIANTS[code]
     return _bwd_variant[key]
 
 
@@ -168,6 +172,20 @@ def launch_forward(q, k, v, causal, window, softcap, *, with_lse: bool):
     return o, lse
 
 
+def _bwd_scratch(kind: str, q: torch.Tensor):
+    """The backward's float32 scratch for q (B, Sq, H, hd): (delta, dq_acc).  The
+    wgmma kernel takes D and lse * log2(e), each (B, H, Sq padded to BWD_SQ_PAD), and
+    a dq accumulator of as many floats as (B, H, padded Sq, hd), in the kernel's own
+    block layout (its prep kernel writes all three); the others take D as (B, H, Sq)
+    and no accumulator."""
+    B, Sq, H, hd = q.shape
+    if kind != "sm90_wgmma":
+        return torch.empty((B, H, Sq), dtype=torch.float32, device=q.device), None
+    sq_pad = -(-Sq // BWD_SQ_PAD) * BWD_SQ_PAD
+    return (torch.empty((2, B, H, sq_pad), dtype=torch.float32, device=q.device),
+            torch.empty((B, H, sq_pad, hd), dtype=torch.float32, device=q.device))
+
+
 def launch_backward(q, k, v, o, lse, do, causal, window, softcap):
     """Launch the backward kernels on CUDA tensors: (dq, dk, dv).  q, k, v and o
     as the forward took and gave them, lse its (B, H, Sq) float32 output."""
@@ -192,11 +210,11 @@ def launch_backward(q, k, v, o, lse, do, causal, window, softcap):
     if _fwd is None:
         _bind()
     kind = bwd_variant(q.dtype, q.shape[3])
-    delta = torch.empty_like(lse)
+    delta, dq_acc = _bwd_scratch(kind, q)
     call = _build.FlashBwdCall(
         q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
         dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
-        dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(), stream=_stream(dev),
+        dq_acc=dq_acc.data_ptr() if dq_acc is not None else None, dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(), stream=_stream(dev),
         B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1], H=q.shape[2], KV=k.shape[2],
         hd=q.shape[3], causal=int(bool(causal)), window=int(window),
         softcap=float(softcap), dtype=_build.DTYPE_CODES[q.dtype], device=dev)

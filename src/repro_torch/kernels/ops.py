@@ -41,7 +41,8 @@ def flash_launches_by_variant() -> dict[str, int]:
 
 
 def flash_bwd_launches_by_variant() -> dict[str, int]:
-    """Flash-attention backward launches per variant (``scalar``, ``mma_sync``)."""
+    """Flash-attention backward launches per variant (``scalar``, ``mma_sync``,
+    ``sm90_wgmma``) since the last :func:`reset_launch_counts`."""
     return dict(_flash_mod.bwd_launches_by_variant)
 
 

@@ -23,6 +23,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import \
+    _flash_vjp_bwd as jax_flash_vjp_bwd  # noqa: E402
+from repro.kernels.flash_attention import \
     flash_attention as jax_flash  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -159,7 +161,8 @@ def test_ops_on_cpu_take_plain_versions_and_launch_nothing():
                                    "flash_attention": 0, "flash_attention_bwd": 0}
     assert ops.flash_launches_by_variant() == {"scalar": 0, "mma_sync": 0,
                                                "sm90_wgmma": 0}
-    assert ops.flash_bwd_launches_by_variant() == {"scalar": 0, "mma_sync": 0}
+    assert ops.flash_bwd_launches_by_variant() == {"scalar": 0, "mma_sync": 0,
+                                                   "sm90_wgmma": 0}
     assert flash_mod.launches == 0 and rmsnorm_mod.launches == 0
 
 
@@ -344,7 +347,14 @@ def test_rmsnorm_backward_refuses_bad_arguments(bad):
 
 # ------------------------------------------------------------- backwards
 
-BWD_CASES = CASES + [(1, 64, 64, 2, 2, 32, True, 0, 20.0), (1, 96, 128, 4, 2, 32, True, 0, 20.0)]
+# Across the CUDA wgmma backward's tiles (128 keys; 64 query rows at head_dim 128,
+# 128 at 64): ragged GQA with Sq < Skv, and a head_dim 64 window over two key tiles.
+BWD_EDGE_CASES = [
+    (2, 191, 321, 28, 4, 128, True, 0),
+    (2, 260, 260, 8, 2, 64, True, 150),
+]
+BWD_CASES = (CASES + [(1, 64, 64, 2, 2, 32, True, 0, 20.0), (1, 96, 128, 4, 2, 32, True, 0, 20.0)]
+             + TILE_EDGE_CASES + BWD_EDGE_CASES)
 
 
 def _case_kw(case):
@@ -383,8 +393,9 @@ def test_lse_reference_matches_jax_logsumexp(case):
 @pytest.mark.parametrize("case", BWD_CASES, ids=[str(c) for c in BWD_CASES])
 def test_attention_backward_reference_matches_jax_vjp(case):
     """dq, dk and dv of the plain backward (from o and lse) against jax.vjp of the
-    reference's Pallas kernel (interpret mode) and torch autograd of
-    mha_reference; f32 <= 1e-5, 1e-4 when capped."""
+    reference's Pallas kernel (interpret mode; at a ragged S its VJP rule
+    ``_flash_vjp_bwd`` alone) and torch autograd of mha_reference; f32 <= 1e-5, 1e-4
+    when capped."""
     capped = len(case) > 8
     scale, tol = (3.0, 1e-4) if capped else (1.0, 1e-5)
     q, k, v = _qkv(case, 15, scale)
@@ -395,10 +406,16 @@ def test_attention_backward_reference_matches_jax_vjp(case):
     lse = ref.flash_attention_lse_reference(tq, tk, **kw)
     got = ref.flash_attention_bwd_reference(tq, tk, tv, o, lse, torch.from_numpy(do), **kw)
 
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, block_q=32, block_kv=32,
-                                               interpret=True, **kw),
-                     *(jnp.asarray(a) for a in (q, k, v)))
-    want_jax = vjp(jnp.asarray(do))
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    if case[1] % 32 == 0 and case[2] % 32 == 0:
+        _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, block_q=32, block_kv=32,
+                                                   interpret=True, **kw), jq, jk, jv)
+        want_jax = vjp(jdo)
+    else:
+        # at a ragged S the interpret-mode forward would walk a grid of single rows;
+        # the kernel's custom VJP rule, called on its own, gives the same gradients
+        want_jax = jax_flash_vjp_bwd(kw["causal"], kw["window"], kw["softcap"], 32, 32, True,
+                                     (jq, jk, jv), jdo)
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     want_torch = torch.autograd.grad(ref.mha_reference(*leaves, **kw), leaves,
                                      torch.from_numpy(do))
@@ -498,3 +515,24 @@ def test_rmsnorm_argument_block_matches_the_c_struct():
                                            ("flash_attention_bwd.cu", "FlashBwdCall")])
 def test_backward_argument_blocks_match_the_c_structs(source, struct):
     assert _c_struct_fields(source, struct) == list(getattr(_build, struct)._fields_)
+
+
+def test_backward_scratch_padding_matches_the_c_header():
+    """The wrapper pads the wgmma backward's per-row scratch as the kernels index it."""
+    pad = re.search(r"constexpr int kSqPad = (\d+);", (CSRC / "flash_attention.cuh").read_text())
+    assert pad and int(pad.group(1)) == flash_mod.BWD_SQ_PAD
+
+
+@pytest.mark.parametrize("kind", flash_mod.VARIANTS)
+def test_backward_scratch_shapes(kind):
+    """delta and dq_acc as ``flash::BwdParams`` states them: (B, H, Sq) and none for
+    the scalar and mma.sync kernels; D and lse * log2(e) over a padded Sq, and a
+    (B, H, padded Sq, hd) accumulator, for the wgmma kernel."""
+    q = torch.zeros(2, 191, 28, 128, dtype=torch.bfloat16)
+    delta, dq_acc = flash_mod._bwd_scratch(kind, q)
+    assert delta.dtype == torch.float32 and delta.is_contiguous()
+    if kind == "sm90_wgmma":
+        assert tuple(delta.shape) == (2, 2, 28, 256)
+        assert tuple(dq_acc.shape) == (2, 28, 256, 128) and dq_acc.dtype == torch.float32
+    else:
+        assert tuple(delta.shape) == (2, 28, 191) and dq_acc is None

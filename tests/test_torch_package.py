@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
            ROOT / "examples" / "train_e2e_torch.py",
-           ROOT / "tools" / "profile_serve_torch.py", ROOT / "tools" / "profile_train_torch.py"]
+           ROOT / "tools" / "profile_serve_torch.py", ROOT / "tools" / "profile_train_torch.py",
+           ROOT / "tools" / "flash_bench.py", ROOT / "tools" / "flash_bwd_phases.py"]
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 FORBIDDEN_CALLS = ("scaled_dot_product_attention", "rms_norm", "compile")
 
