@@ -5,8 +5,16 @@ stacked prefill cache into the flat per-layer layout, right-size it, decode
 token by token.  Runs on the GPU (the attention and RMSNorm kernels are built
 at first use); pass --device cpu to run the plain versions instead.
 
+Every ported --arch runs: the dense ones (qwen2_7b, gemma_7b, qwen3_32b,
+granite_34b), the mixture-of-experts ones (qwen3_moe_30b_a3b, dbrx_132b) and
+the cross-attention ones (llama_3p2_vision_11b, whisper_medium), whose
+vision patches / audio frames are random embeddings at 0.02 scale from a
+seeded generator (the frontends are stubs, as in the reference).
+
 PYTHONPATH=src python examples/serve_torch.py                    # reduced gemma-7b
 PYTHONPATH=src python examples/serve_torch.py --arch qwen2_7b --full --seq 2048
+PYTHONPATH=src python examples/serve_torch.py --arch whisper_medium --full --seq 448
+PYTHONPATH=src python examples/serve_torch.py --arch llama_3p2_vision_11b --device cpu
 """
 
 import argparse
@@ -15,6 +23,7 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import modality_inputs
 from repro_torch.kernels import ops
 from repro_torch.models.lm import LM
 from repro_torch.parallel.trainstep import make_prefill_step, make_serve_step
@@ -38,6 +47,8 @@ B, S, GEN = args.batch, args.seq, args.gen
 MAXLEN = S + GEN
 requests = torch.randint(0, cfg.vocab, (B, S), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1))
+# the modality inputs a cross-attention model attends to (none for the others)
+mods = modality_inputs(cfg, B, torch.Generator(device=dev).manual_seed(2), dev)
 
 
 def sync():
@@ -47,7 +58,7 @@ def sync():
 
 # prefill: last-token logits + kv cache (stacked per pattern position)
 t0 = time.perf_counter()
-logits, stacked = prefill({"tokens": requests})
+logits, stacked = prefill({"tokens": requests, **mods})
 sync()
 print(f"prefill  B={B} S={S}: {time.perf_counter() - t0:.3f}s "
       f"logits {tuple(logits.shape)}")
@@ -66,7 +77,7 @@ t0 = time.perf_counter()
 for t in range(GEN):
     # the cache is updated in place
     logits, cache = serve(cache, {"tokens": tok,
-                                  "pos": torch.full((B,), S + t, device=dev)})
+                                  "pos": torch.full((B,), S + t, device=dev), **mods})
     tok = logits.argmax(-1, keepdim=True)
     out.append(tok)
 sync()

@@ -1,10 +1,16 @@
-"""End-to-end driver of the PyTorch port: train a dense LM for a few hundred steps
-on synthetic data, through the hand-written kernels on the card (the twin of
+"""End-to-end example of the PyTorch port: train an LM for a few hundred steps on
+synthetic data, through the hand-written kernels on the card (the twin of
 ``examples/train_e2e.py``).
+
+By default a ~100M dense decoder of the qwen2 family.  ``--arch`` trains one of
+the ported architectures instead (dense, MoE, or cross-attention, whose batches
+carry SyntheticLM's audio / vision embeddings): reduced with ``--small``, at its
+published size otherwise.
 
 PYTHONPATH=src python examples/train_e2e_torch.py --steps 300                # on the card
 PYTHONPATH=src python examples/train_e2e_torch.py --steps 40 --small          # smoke, card
 PYTHONPATH=src python examples/train_e2e_torch.py --steps 40 --small --device cpu
+PYTHONPATH=src python examples/train_e2e_torch.py --steps 40 --small --arch whisper_medium
 """
 
 import argparse
@@ -23,6 +29,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--small", action="store_true",
                     help="10M-param config for quick verification")
+    ap.add_argument("--arch", default="",
+                    help="a ported architecture (its reduced config with --small)")
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--device", default="cuda",
@@ -32,7 +40,9 @@ def main() -> None:
 
     # ~100M dense decoder in the qwen2 family (GQA + swiglu).
     base = get_config("qwen2_7b")
-    if args.small:
+    if args.arch:
+        cfg = get_config(args.arch).reduced() if args.small else get_config(args.arch)
+    elif args.small:
         cfg = base.reduced(n_layers=4, d_model=256, vocab=4096, d_ff=1024,
                            n_heads=4, n_kv_heads=2, head_dim=64)
     else:

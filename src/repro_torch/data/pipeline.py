@@ -15,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -27,6 +28,23 @@ class DataConfig:
     audio_seq: int = 0
     vision_seq: int = 0
     d_model: int = 0
+
+
+def modality_inputs(arch, batch: int, generator: torch.Generator,
+                    device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Random inputs for the modalities ``arch`` attends to, by batch key: audio
+    frames for a model with an encoder, image patches for one with vision
+    cross-attention, none for the others.  N(0, 0.02^2) at d_model, as
+    :class:`SyntheticLM` makes them, drawn in fp32 from ``generator`` on
+    ``device`` and returned in the model's dtype."""
+    out = {}
+    for key, n, on in (("audio_embed", arch.audio_seq, arch.encoder_layers),
+                       ("vision_embed", arch.vision_seq, arch.cross_attn_every)):
+        if on:
+            out[key] = (torch.randn((batch, n, arch.d_model), generator=generator,
+                                    device=device, dtype=torch.float32) * 0.02
+                        ).to(arch.torch_dtype)
+    return out
 
 
 class SyntheticLM:

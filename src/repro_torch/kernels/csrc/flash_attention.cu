@@ -6,7 +6,8 @@
 // mask qpos >= kpos with qpos offset by Skv - Sq, window mask qpos - kpos < window
 // (applied whether or not causal is set), fp32 (acc, m, l), p forced to 0 where
 // s <= -5e29, result acc / max(l, 1e-30), and on request lse = m + log(l) per row
-// for the backward.  Contract: Sq <= Skv.
+// for the backward.  Contract: Sq <= Skv under a causal mask or a window; any Sq
+// without either (the offset Skv - Sq, negative then, is read only by those masks).
 //
 // The C entry point below picks one of three kernels by type and head_dim (the
 // rule is flash::variant_for in flash_attention.cuh; it is a split by shape, not a

@@ -8,7 +8,8 @@
 // scale 1/sqrt(hd), softcap before the mask, causal qpos >= kpos with qpos offset
 // by Skv - Sq, window qpos - kpos < window with or without causal, p = 0 where
 // s <= -5e29, result acc / max(l, 1e-30), lse = m + log(l) per row when asked,
-// Sq <= Skv, ragged Sq and Skv.
+// Sq <= Skv under a causal mask or a window (any Sq without either), ragged Sq and
+// Skv.
 //
 // Bound on this card: operations.  At the prefill shape (S = 2048, hd = 128) the
 // two products do ~S*hd/2 flops per byte of q/k/v/o, far above the ~295 flop/byte

@@ -101,9 +101,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd).  Returns (B, Sq, H, hd).
 
     Queries are aligned to the end of the keys (query i sits at position
-    ``i + Skv - Sq``).  ``Sq <= Skv`` is required on either device: with more
-    queries than keys the first rows would see no key at all.  Differentiable in
-    q, k and v on either device.
+    ``i + Skv - Sq``).  With a causal mask or a window, ``Sq <= Skv`` is required
+    on either device: with more queries than keys the first rows would see no key
+    at all (where the reference's kernel gives zeros and its oracle the mean of v).
+    Without either mask the positions are never read, every row sees every key,
+    and any ``Sq`` is taken (cross-attention to a shorter memory).
+    Differentiable in q, k and v on either device.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}, "
@@ -113,9 +116,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not fit (GQA needs H % KV == 0)")
-    if Sq > Skv:
-        raise ValueError(f"flash_attention: Sq ({Sq}) > Skv ({Skv}) leaves "
-                         "query rows without any key")
+    if Sq > Skv and (causal or window):
+        raise ValueError(f"flash_attention: Sq ({Sq}) > Skv ({Skv}) with a causal "
+                         "mask or a window leaves query rows without any key")
     if window < 0:
         raise ValueError("flash_attention: window must be >= 0")
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -20,7 +20,7 @@ import torch
 BlockKind = Literal["attn", "mamba", "mlstm", "slstm", "shared_attn"]
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                 "float16": torch.float16}
+                 "float16": torch.float16, "float64": torch.float64}
 
 
 @dataclass(frozen=True)

@@ -2,10 +2,13 @@
 
 The reference keeps its parameters as nested dicts: ``embed.tok``,
 ``final_norm`` and one ``pos{p}`` per pattern position whose leaves
-(``attn.*``, ``ffn.*``) carry a leading ``n_cycles`` dim.  Layer
-``i = c * cycle_len + p`` of :class:`repro_torch.models.lm.LM` is slice ``c`` of
-``pos{p}``.  Arrays cross as numpy; shapes are identical on both sides
-(``wq (d,H,hd)`` and so on), so nothing is transposed.
+(``attn.*``, ``ffn.*``, ``moe.*``, ``cross.*``) carry a leading ``n_cycles``
+dim; whisper adds ``encoder.*`` (leading ``encoder_layers`` dim) and
+``enc_norm``.  Layer ``i = c * cycle_len + p`` of
+:class:`repro_torch.models.lm.LM` is slice ``c`` of ``pos{p}``, encoder layer
+``j`` slice ``j`` of ``encoder``.  Arrays cross as numpy; shapes are identical
+on both sides (``wq (d,H,hd)``, ``router (d,E)``, ``w_gate (E,d,f)``, ``gate
+(1,)`` and so on), so nothing is transposed.
 
 The train state is ``{"params": ..., "opt": OptState(m, v, step)}`` on both sides;
 in the port ``params``, ``m`` and ``v`` are dicts keyed by the module's parameter
@@ -30,17 +33,27 @@ def _leaves(tree, prefix=""):
     return {prefix: tree}
 
 
+def _stacked(path: str) -> bool:
+    """Whether a reference leaf carries a leading layer dim."""
+    return path.startswith(("pos", "encoder."))
+
+
 def _target_names(model: LM) -> dict[str, list[str]]:
     """Reference leaf path -> the names of the module's parameters it holds, one
     per slice of its leading dim (a single one for unstacked leaves)."""
     cfg = model.cfg
     out = {"embed.tok": ["embed.tok"], "final_norm": ["final_norm"]}
-    for p in range(cfg.cycle_len):
-        idx = [c * cfg.cycle_len + p for c in range(cfg.n_cycles)]
-        for group in ("attn", "ffn"):
-            for name in getattr(model.blocks[idx[0]], group).keys():
-                out[f"pos{p}.{group}.{name}"] = [f"blocks.{i}.{group}.{name}"
-                                                 for i in idx]
+    stacks = [(f"pos{p}", [f"blocks.{c * cfg.cycle_len + p}" for c in range(cfg.n_cycles)])
+              for p in range(cfg.cycle_len)]
+    if cfg.encoder_layers:
+        stacks.append(("encoder", [f"encoder.{j}" for j in range(cfg.encoder_layers)]))
+    for root, layers in stacks:
+        first = model.get_submodule(layers[0])
+        for group, params in first.named_children():
+            for name in params.keys():
+                out[f"{root}.{group}.{name}"] = [f"{lyr}.{group}.{name}" for lyr in layers]
+    if cfg.encoder_layers:
+        out["enc_norm"] = ["enc_norm"]
     return out
 
 
@@ -85,7 +98,7 @@ def load_jax_params(model: LM, params_np: dict) -> LM:
         raise KeyError(f"load_jax_params: missing leaves {missing}, "
                        f"unexpected leaves {extra}")
     for path, params in targets.items():
-        stacked = path.startswith("pos")
+        stacked = _stacked(path)
         want = ((len(params),) if stacked else ()) + tuple(params[0].shape)
         src = _leaf_tensor(leaves, path, want)
         for c, prm in enumerate(params):
@@ -101,7 +114,7 @@ def export_jax_tree(model: LM, named: dict) -> dict:
     flat = {}
     for path, names in _target_names(model).items():
         arrs = [named[n].detach().float().cpu().numpy() for n in names]
-        flat[path] = np.stack(arrs) if path.startswith("pos") else arrs[0]
+        flat[path] = np.stack(arrs) if _stacked(path) else arrs[0]
     return _nest(flat)
 
 
@@ -109,8 +122,6 @@ def export_jax_params(model: LM) -> dict:
     """The reverse of :func:`load_jax_params`: the reference's tree as nested
     dicts of float32 numpy arrays."""
     return export_jax_tree(model, dict(model.named_parameters()))
-
-
 
 
 @torch.no_grad()
@@ -124,7 +135,7 @@ def _import_moments(model: LM, tree) -> dict:
     out = {}
     for path, names in targets.items():
         params = [model.get_parameter(n) for n in names]
-        stacked = path.startswith("pos")
+        stacked = _stacked(path)
         src = _leaf_tensor(leaves, path, ((len(names),) if stacked else ())
                            + tuple(params[0].shape))
         for c, (n, prm) in enumerate(zip(names, params)):
@@ -165,7 +176,7 @@ def jax_train_state_like(model: LM) -> dict:
         flat = {}
         for path, names in _target_names(model).items():
             prm = model.get_parameter(names[0])
-            shape = ((len(names),) if path.startswith("pos") else ()) + tuple(prm.shape)
+            shape = ((len(names),) if _stacked(path) else ()) + tuple(prm.shape)
             flat[path] = torch.empty(shape, dtype=dtype or prm.dtype, device="meta")
         return _nest(flat)
     return {"params": tree(),

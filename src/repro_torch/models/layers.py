@@ -1,25 +1,30 @@
-"""Layer primitives of the dense decoder LM (plain functions on tensors).
+"""Layer primitives of the LM (plain functions on tensors).
 
-Counterpart of ``repro.models.layers`` for the block kind ``"attn"`` with a
-dense FFN.  Parameters are declared as :class:`ParamDef` trees with the
-reference's names, shapes and init rule; :func:`materialize` turns a def-tree
-into ``nn.Parameter``s on an explicit device.  The reference's ``shard(...)``
-annotations have no counterpart on one card and are dropped until the parallel
-layer is ported.
+Counterpart of ``repro.models.layers`` for the attention family: self-attention
+(``"attn"`` blocks and the encoder), the dense FFN, the mixture-of-experts FFN
+and cross-attention to a memory (``"cross_attn"`` blocks).  Parameters are
+declared as :class:`ParamDef` trees with the reference's names, shapes and init
+rule; :func:`materialize` turns a def-tree into ``nn.Parameter``s on an
+explicit device.  The reference's ``shard(...)`` annotations have no
+counterpart on one card and are dropped until the parallel layer is ported.
 
 Where the kernels sit: on a CUDA tensor :func:`rms_norm` (``gemma_style=False``)
 goes through ``kernels.ops.rmsnorm``, and :func:`mha` called WITHOUT explicit
 positions goes through ``kernels.ops.flash_attention``; both launch the
 hand-written kernel or raise.  :func:`mha` WITH explicit positions (the decode
 path, whose mask differs per batch row) is plain tensor code on either device:
-that is a routing decision, not a fallback.
+that is a routing decision, not a fallback.  Cross-attention calls :func:`mha`
+without positions, so it runs on the kernel at prefill and decode alike.  The
+MoE dispatch (routing, sort, capacity, gather, scatter-add) and the expert
+products are plain tensor code and cuBLAS: none of it is a Pallas kernel in the
+reference either.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Mapping
+from typing import Any, Mapping, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -243,9 +248,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     Masks: causal by position, optional sliding ``window``.
 
     Routing: without explicit positions (queries aligned to the end of the
-    keys, ``Sq <= Skv``) this is exactly the fused kernel's contract and the
-    call goes to ``kernels.ops.flash_attention`` -- on a CUDA tensor the
-    hand-written kernel or an error, on a CPU tensor its plain version.  With
+    keys; ``Sq <= Skv`` when a mask is on, any ``Sq`` without one) this is
+    exactly the fused kernel's contract and the call goes to
+    ``kernels.ops.flash_attention`` -- on a CUDA tensor the hand-written kernel
+    or an error, on a CPU tensor its plain version.  With
     explicit positions the mask may differ per batch row, which the kernel
     cannot express, and the plain chunked form below is used on any device.
     """
@@ -333,6 +339,120 @@ def ffn_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
     else:
         up = _act(cfg.ffn_kind, up)
     return x + up @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (capacity-gather dispatch, static shapes)
+# ---------------------------------------------------------------------------
+
+
+def moe_defs(cfg) -> dict:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"ln": ParamDef((d,), init="ones"),
+            "router": ParamDef((d, E)),
+            "w_gate": ParamDef((E, d, f)),
+            "w_up": ParamDef((E, d, f)),
+            "w_down": ParamDef((E, f, d))}
+
+
+class MoERoute(NamedTuple):
+    """The dispatch plan of :func:`moe_block`: the number of token groups and
+    the per-group capacity, then per group (G, tg*K) and sorted by expert id
+    (stable, so the pairs of one expert keep token order) each (token, k)
+    pair's expert, token, slot in the group's (E*C + 1)-row buffer (``E*C`` is
+    the drop bin) and renormalised gate."""
+    groups: int
+    capacity: int
+    expert: torch.Tensor
+    token: torch.Tensor
+    slot: torch.Tensor
+    gate: torch.Tensor
+
+
+def moe_route(p, cfg, h: torch.Tensor) -> MoERoute:
+    """Route normed tokens h (B, S, d) by the reference's steps, one for one:
+    fp32 router logits, softmax, top-k, gates renormalised and cast to h's
+    dtype, the group count falling back to 1 when it does not divide the
+    tokens, ``C = min(max(int(K*tg*cf/E), 1), tg)``, a stable sort by expert,
+    each pair's rank in its expert's queue, pairs ranked ``>= C`` to the drop
+    bin."""
+    B, S, d = h.shape
+    E, K = cfg.n_experts, cfg.top_k
+    t = B * S
+    G = max(cfg.moe_groups, 1)
+    if t % G:
+        G = 1
+    tg = t // G
+    probs = torch.softmax((h.reshape(G, tg, d) @ p["router"]).float(), dim=-1)
+    gate, idx = torch.topk(probs, K, dim=-1)                 # (G, tg, K)
+    gate = (gate / gate.sum(-1, keepdim=True)).to(h.dtype)
+    C = min(max(int(K * tg * cfg.moe_capacity_factor / E), 1), tg)
+    flat_e = idx.reshape(G, tg * K)
+    order = torch.argsort(flat_e, dim=1, stable=True)
+    se = flat_e.gather(1, order)
+    stok = torch.arange(tg, device=h.device).repeat_interleave(K)[order]
+    sg = gate.reshape(G, tg * K).gather(1, order)
+    first = torch.searchsorted(
+        se, torch.arange(E, device=h.device, dtype=se.dtype).expand(G, E).contiguous())
+    rank = torch.arange(tg * K, device=h.device)[None] - first.gather(1, se)
+    slot = torch.where(rank < C, se * C + rank, torch.full_like(se, E * C))
+    return MoERoute(G, C, se, stok, slot, sg)
+
+
+def moe_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE with group-local capacity dispatch, the reference's semantics:
+    pairs past an expert's capacity ``C`` in their group go to the drop bin and
+    add nothing.  Every expert runs all its ``G*C`` slots (empty ones on zeros),
+    as three batched products over the experts."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    G, C, _, stok, slot, sg = moe_route(p, cfg, h)
+    tg = B * S // G
+    ht = h.reshape(G, tg, d)
+    rows = torch.arange(G, device=x.device)[:, None]
+    # gather into per-group (E*C + 1, d) buffers; the drop bin's row is discarded
+    buf = x.new_zeros((G, E * C + 1, d))
+    buf[rows, slot] = ht[rows, stok]
+    xe = buf[:, :-1].reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    a = _act(cfg.ffn_kind, torch.bmm(xe, p["w_gate"]))
+    ye = torch.bmm(torch.bmm(xe, p["w_up"]) * a, p["w_down"])      # (E, G*C, d)
+    yg = ye.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+    yg = torch.cat([yg, x.new_zeros((G, 1, d))], dim=1)
+    contrib = yg[rows, slot] * sg[..., None]
+    out = x.new_zeros((G * tg, d)).index_add(
+        0, (rows * tg + stok).reshape(-1), contrib.reshape(-1, d))
+    return x + out.reshape(B, S, d)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM image layers, whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_defs(cfg) -> dict:
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    return {"ln": ParamDef((d,), init="ones"),
+            "wq": ParamDef((d, H, hd)),
+            "wk": ParamDef((d, KV, hd)),
+            "wv": ParamDef((d, KV, hd)),
+            "wo": ParamDef((H, hd, d)),
+            "gate": ParamDef((1,), init="zeros")}     # llama-vision's tanh gate
+
+
+def cross_attn_block(p, cfg, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    """Attend from x (B, S, d) to a memory (B, M, d): no rope, no mask, k and v
+    projected from the memory as it is; the output scaled by ``tanh(gate)``.
+    Attention is :func:`mha` without positions (the kernel on the card), where
+    ``S > M`` is allowed because nothing is masked."""
+    B, S, d = x.shape
+    KV, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = _proj_in(h, p["wq"]).reshape(B, S, KV, H // KV, hd)
+    k = _proj_in(memory, p["wk"])
+    v = _proj_in(memory, p["wv"])
+    o = mha(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk)
+    return x + torch.tanh(p["gate"].to(x.dtype)) * _proj_out(o, p["wo"])
 
 
 # ---------------------------------------------------------------------------

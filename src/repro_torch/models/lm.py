@@ -1,19 +1,25 @@
-"""Composable LM: dense decoder blocks (``"attn"`` + FFN), training and serving.
+"""Composable LM: the attention family of block kinds, training and serving.
 
 One :class:`LM` consumes an :class:`repro_torch.models.config.ArchConfig` and
-provides ``init / forward / loss / prefill / init_cache / unstack_cache /
-decode_step``.  It is an ``nn.Module`` holding an ``nn.ModuleList`` of blocks;
-block ``i`` is cycle ``c`` and pattern position ``p`` of the reference's stacked
-layout, ``i = c * cycle_len + p``.  The layer functions live in
-:mod:`repro_torch.models.layers`.
+provides ``init / encode / forward / loss / prefill / init_cache /
+unstack_cache / decode_step``.  It is an ``nn.Module`` holding an
+``nn.ModuleList`` of blocks; block ``i`` is cycle ``c`` and pattern position
+``p`` of the reference's stacked layout, ``i = c * cycle_len + p``.  The layer
+functions live in :mod:`repro_torch.models.layers`.
+
+Block kinds ported: ``"attn"`` (self-attention + FFN, or + MoE when
+``cfg.n_experts``) and ``"cross_attn"`` (self-attention + cross-attention to a
+memory + FFN: llama-3.2-vision's image layers, whisper's decoder), with
+whisper's encoder.  The memory is the encoded ``audio_embed`` (whisper) or the
+``vision_embed`` as given (llama-vision); a model without cross-attention
+ignores both.
 
 ``forward`` and ``loss`` run with gradients: the RMSNorm and attention kernels
 sit on the path through their ``autograd.Function``s (kernels/), and ``remat``
 recomputes each block in the backward through ``torch.utils.checkpoint``.
 
-Still to be ported, and refused with ``NotImplementedError`` until then:
-mixture-of-experts FFNs, the other block kinds (cross_attn, mamba, mlstm,
-slstm, shared_attn) and the encoder.
+Still to be ported, and refused with ``NotImplementedError`` until then: the
+recurrent block kinds (mamba, mlstm, slstm) and zamba2's shared attention.
 """
 
 from __future__ import annotations
@@ -31,29 +37,25 @@ from repro_torch.models.config import ArchConfig
 
 
 class Block(nn.Module):
-    """Parameters of one ``"attn"`` layer: ``attn`` and ``ffn`` groups."""
+    """Parameters of one layer: a ``ParameterDict`` per group of its block
+    definition (``attn`` and ``ffn`` or ``moe``; ``cross`` too for
+    ``"cross_attn"``)."""
 
-    def __init__(self, cfg: ArchConfig, dtype: torch.dtype, device):
+    def __init__(self, defs: dict, dtype: torch.dtype, device):
         super().__init__()
-        self.attn = L.materialize(L.attn_defs(cfg), dtype, device)
-        self.ffn = L.materialize(L.ffn_defs(cfg), dtype, device)
+        for group, group_defs in defs.items():
+            setattr(self, group, L.materialize(group_defs, dtype, device))
+
+
+UNPORTED_KINDS = ("mamba", "mlstm", "slstm", "shared_attn")
 
 
 def _refuse_unported(cfg: ArchConfig) -> None:
-    other = sorted({k for k in cfg.pattern if k != "attn"})
+    other = sorted({k for k in cfg.pattern if k in UNPORTED_KINDS})
     if other:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {other} are not ported yet (the slice "
-            "after training ports MoE, Mamba2, mLSTM/sLSTM, cross and shared "
-            "attention)")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts FFNs are not ported yet (the "
-            "slice that ports the remaining block kinds)")
-    if cfg.encoder_layers > 0 or cfg.cross_attn_every > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder and cross-attention are not ported yet "
-            "(the slice that ports the remaining block kinds)")
+            f"{cfg.name}: block kinds {other} are not ported yet (the slice that "
+            "ports the recurrent kinds and shared attention)")
 
 
 #: matrix products without batch dims: what ``remat="selective"`` keeps, as the
@@ -68,10 +70,10 @@ def _save_products(ctx, op, *args, **kwargs):
 
 
 class LM(nn.Module):
-    """Dense decoder LM.  ``LM(cfg, device=...)`` allocates the parameters
-    (uninitialized) in ``cfg.torch_dtype`` on ``device``; :meth:`init` fills
-    them from a ``torch.Generator``, ``convert.load_jax_params`` from the
-    reference's parameter tree."""
+    """``LM(cfg, device=...)`` allocates the parameters (uninitialized) in
+    ``cfg.torch_dtype`` on ``device``; :meth:`init` fills them from a
+    ``torch.Generator``, ``convert.load_jax_params`` from the reference's
+    parameter tree."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype | None = None):
@@ -82,20 +84,38 @@ class LM(nn.Module):
         self.embed = L.materialize(L.embed_defs(cfg), dtype, device)
         self.final_norm = L.materialize(
             L.ParamDef((cfg.d_model,), init="ones"), dtype, device)
-        self.blocks = nn.ModuleList(Block(cfg, dtype, device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(self.block_defs(cfg.block_kind(i)), dtype, device)
+            for i in range(cfg.n_layers))
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(
+                Block(self.encoder_defs(), dtype, device)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = L.materialize(
+                L.ParamDef((cfg.d_model,), init="ones"), dtype, device)
 
     # ------------------------------------------------------------------
     # Parameters
     # ------------------------------------------------------------------
 
-    def block_defs(self, kind: str = "attn") -> dict:
-        if kind != "attn":
-            raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    def block_defs(self, kind: str) -> dict:
+        cfg = self.cfg
+        if kind == "attn":
+            return {"attn": L.attn_defs(cfg),
+                    **({"moe": L.moe_defs(cfg)} if cfg.n_experts
+                       else {"ffn": L.ffn_defs(cfg)})}
+        if kind == "cross_attn":
+            return {"attn": L.attn_defs(cfg), "cross": L.cross_attn_defs(cfg),
+                    "ffn": L.ffn_defs(cfg)}
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+
+    def encoder_defs(self) -> dict:
+        """One encoder layer (whisper): non-causal self-attention + FFN."""
         return {"attn": L.attn_defs(self.cfg), "ffn": L.ffn_defs(self.cfg)}
 
     def param_defs(self) -> dict:
-        """The reference's parameter tree: ``pos{p}`` stacked over cycles."""
+        """The reference's parameter tree: ``pos{p}`` stacked over cycles, and
+        ``encoder`` stacked over its layers."""
         cfg = self.cfg
         defs: dict = {
             "embed": L.embed_defs(cfg),
@@ -104,18 +124,29 @@ class LM(nn.Module):
         for p, kind in enumerate(cfg.pattern):
             defs[f"pos{p}"] = L.stack_defs(self.block_defs(kind),
                                            cfg.n_cycles)
+        if cfg.encoder_layers:
+            defs["encoder"] = L.stack_defs(self.encoder_defs(),
+                                           cfg.encoder_layers)
+            defs["enc_norm"] = L.ParamDef((cfg.d_model,), init="ones")
         return defs
 
     def init(self, generator: torch.Generator) -> "LM":
         """Random init by the reference's rule (normal / sqrt(fan_in), embed
-        0.02, norms ones, biases zeros), parameter by parameter on the
+        0.02, norms ones, biases and gates zeros), parameter by parameter on the
         generator's device."""
-        L.init_params(self.embed, L.embed_defs(self.cfg), generator)
+        cfg = self.cfg
+        L.init_params(self.embed, L.embed_defs(cfg), generator)
+        layers = [(blk, self.block_defs(cfg.block_kind(i)))
+                  for i, blk in enumerate(self.blocks)]
+        if cfg.encoder_layers:
+            layers += [(lyr, self.encoder_defs()) for lyr in self.encoder]
         with torch.no_grad():
             self.final_norm.fill_(1.0)
-        for blk in self.blocks:
-            L.init_params(blk.attn, L.attn_defs(self.cfg), generator)
-            L.init_params(blk.ffn, L.ffn_defs(self.cfg), generator)
+            if cfg.encoder_layers:
+                self.enc_norm.fill_(1.0)
+        for blk, defs in layers:
+            for group, group_defs in defs.items():
+                L.init_params(getattr(blk, group), group_defs, generator)
         return self
 
     def n_params(self) -> int:
@@ -123,35 +154,81 @@ class LM(nn.Module):
                    for _, d in L.flatten_defs(self.param_defs()))
 
     # ------------------------------------------------------------------
+    # Encoder / memory (whisper's audio frames, llama-vision's patches)
+    # ------------------------------------------------------------------
+
+    def encode(self, audio_embed: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over precomputed frame embeddings (B, F, d):
+        non-causal self-attention with rope over the frame positions and an
+        FFN per layer, then ``enc_norm``."""
+        cfg = self.cfg
+        x = audio_embed
+        B, F = x.shape[:2]
+        pos = torch.arange(F, device=x.device)[None].expand(B, F)
+        for lyr in self.encoder:
+            x = L.attn_block(lyr.attn, cfg, x, pos, causal=False)
+            x = L.ffn_block(lyr.ffn, cfg, x)
+        return L.rms_norm(x, self.enc_norm, cfg.norm_eps)
+
+    def _memory(self, audio_embed, vision_embed):
+        """What cross-attention attends to; None for a model without it."""
+        if self.cfg.encoder_layers:
+            if audio_embed is None:
+                raise ValueError(f"{self.cfg.name} needs audio_embed")
+            return self.encode(audio_embed)
+        if self.cfg.cross_attn_every:
+            if vision_embed is None:
+                raise ValueError(f"{self.cfg.name} needs vision_embed")
+            return vision_embed
+        return None
+
+    @staticmethod
+    def _ffn(blk: Block, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+        if hasattr(blk, "moe"):
+            return L.moe_block(blk.moe, cfg, x)
+        return L.ffn_block(blk.ffn, cfg, x)
+
+    # ------------------------------------------------------------------
     # Forward (prefill)
     # ------------------------------------------------------------------
 
-    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor):
-        """One ``"attn"`` layer: (new x, its k, its v)."""
+    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor,
+               memory: torch.Tensor | None):
+        """One ``"attn"`` or ``"cross_attn"`` layer: (new x, its k, its v)."""
         cfg = self.cfg
         h = L.rms_norm(x, blk.attn["ln"], cfg.norm_eps)
         q, k, v = L._qkv(blk.attn, cfg, h, positions)
         # implicit positions: the fused attention kernel on the card
         o = L.mha(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk)
         x = x + L._proj_out(o, blk.attn["wo"])
-        return L.ffn_block(blk.ffn, cfg, x), k, v
+        if hasattr(blk, "cross"):
+            x = L.cross_attn_block(blk.cross, cfg, x, memory)
+        return self._ffn(blk, cfg, x), k, v
 
-    def forward(self, tokens: torch.Tensor, *, remat: str = "none",
-                return_cache: bool = False):
+    def forward(self, tokens: torch.Tensor, *,
+                audio_embed: torch.Tensor | None = None,
+                vision_embed: torch.Tensor | None = None,
+                remat: str = "none", return_cache: bool = False):
         """Full-sequence forward.  Returns the final hidden (B,S,d), and the
         decode cache when ``return_cache`` (prefill path): a tuple over
         pattern positions of ``{"k","v"}``, each stacked over cycles as
         ``(n_cycles, B, S, KV, hd)``.
 
+        ``audio_embed`` (B, F, d) feeds whisper's encoder and ``vision_embed``
+        (B, M, d) llama-vision's cross-attention, in the model's dtype and on its
+        device; a model without cross-attention ignores them.
+
         ``remat`` (with gradients only): ``"none"`` keeps every activation for
         the backward; ``"full"`` keeps each block's input and recomputes the
-        block; ``"selective"`` also keeps the outputs of its matrix products."""
+        block; ``"selective"`` also keeps the outputs of its matrix products.
+        The encoder is not recomputed, as in the reference."""
         if remat not in REMAT:
             raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         cfg = self.cfg
         B, S = tokens.shape
         x = L.embed(self.embed, cfg, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        memory = self._memory(audio_embed, vision_embed)
         per_pos: list[list[dict]] = [[] for _ in cfg.pattern]
         recompute = remat != "none" and torch.is_grad_enabled()
         kw = {"use_reentrant": False}
@@ -160,9 +237,9 @@ class LM(nn.Module):
                                                  _save_products)
         for i, blk in enumerate(self.blocks):
             if recompute:
-                x, k, v = checkpoint(self._block, blk, x, positions, **kw)
+                x, k, v = checkpoint(self._block, blk, x, positions, memory, **kw)
             else:
-                x, k, v = self._block(blk, x, positions)
+                x, k, v = self._block(blk, x, positions, memory)
             if return_cache:
                 per_pos[i % cfg.cycle_len].append({"k": k, "v": v})
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
@@ -178,22 +255,23 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor, *,
-             remat: str = "none") -> torch.Tensor:
+             remat: str = "none", **mods) -> torch.Tensor:
         """Mean next-token cross-entropy (fp32) over the labels that are not
-        -100, with the tied unembedding."""
-        x = self.forward(tokens, remat=remat)
+        -100, with the tied unembedding; ``mods``: ``audio_embed`` /
+        ``vision_embed`` as :meth:`forward` takes them."""
+        x = self.forward(tokens, remat=remat, **mods)
         return L.xent_loss(x, self.embed["tok"], labels, self.cfg)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
+    def prefill(self, tokens: torch.Tensor, **mods):
         """Serving prefill: returns (last-token logits, stacked cache)."""
-        x, cache = self.forward(tokens, return_cache=True)
+        x, cache = self.forward(tokens, return_cache=True, **mods)
         logits = L.logits_chunked(x[:, -1:], self.embed["tok"], self.cfg)
         return logits[:, 0], cache
 
     def _cache_entry(self, kind: str, batch: int, max_len: int, device):
         cfg = self.cfg
-        if kind != "attn":
+        if kind not in ("attn", "cross_attn"):
             raise NotImplementedError(f"cache of block kind {kind!r} is not "
                                       "ported yet")
         kvs = (batch, max_len, cfg.n_kv_heads, cfg.hd)
@@ -202,7 +280,7 @@ class LM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, *, device="cuda"):
         """Zeroed flat per-layer decode cache: a tuple of ``{"k","v"}`` of
-        ``(batch, max_len, KV, hd)``."""
+        ``(batch, max_len, KV, hd)`` (the self-attention's, for both kinds)."""
         return tuple(self._cache_entry(self.cfg.block_kind(i), batch,
                                        max_len, device)
                      for i in range(self.cfg.n_layers))
@@ -218,19 +296,25 @@ class LM(nn.Module):
         return tuple(flat)
 
     @torch.no_grad()
-    def decode_step(self, cache, tokens: torch.Tensor, pos: torch.Tensor):
+    def decode_step(self, cache, tokens: torch.Tensor, pos: torch.Tensor, *,
+                    audio_embed: torch.Tensor | None = None,
+                    vision_embed: torch.Tensor | None = None):
         """One decode step: tokens (B,1), pos (B,).  Returns (logits, cache).
 
         ``cache`` is the flat per-layer tuple and is written IN PLACE at
         ``pos`` (this takes the place of donating the cache to a jitted step);
         the returned cache is the same object.  ``pos < max_len`` is the
-        caller's contract.
+        caller's contract.  The memory is recomputed every step, as the
+        reference does: whisper runs its encoder again each step.
         """
         cfg = self.cfg
         x = L.embed(self.embed, cfg, tokens)
+        memory = self._memory(audio_embed, vision_embed)
         for blk, cc in zip(self.blocks, cache):
             x, _, _ = L.attn_decode(blk.attn, cfg, x, cc["k"], cc["v"], pos)
-            x = L.ffn_block(blk.ffn, cfg, x)
+            if hasattr(blk, "cross"):
+                x = L.cross_attn_block(blk.cross, cfg, x, memory)
+            x = self._ffn(blk, cfg, x)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = L.logits_chunked(x, self.embed["tok"], cfg)
         return logits[:, 0], cache

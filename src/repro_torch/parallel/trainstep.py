@@ -23,17 +23,16 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 MOD_KEYS = ("audio_embed", "vision_embed")
 
 
-def _split_mods(batch: dict) -> tuple[dict, dict]:
-    mods = {k: v for k, v in batch.items() if k in MOD_KEYS}
+def _split_mods(model: LM, batch: dict) -> tuple[dict, dict]:
+    """(the batch without its modality inputs, those inputs in the model's dtype
+    on its device).  The kernels take one dtype, so an fp32 embedding meets a
+    bf16 model as bf16; JAX would instead promote the bf16 x f32 products of
+    the memory's projections to f32.  In float32 the two agree."""
+    param = model.embed["tok"]
+    mods = {k: v.to(param.device, param.dtype) for k, v in batch.items()
+            if k in MOD_KEYS}
     rest = {k: v for k, v in batch.items() if k not in MOD_KEYS}
     return rest, mods
-
-
-def _refuse_mods(mods: dict) -> None:
-    if mods:
-        raise NotImplementedError(
-            f"modality inputs {sorted(mods)} need the encoder and "
-            "cross-attention blocks, which are not ported yet")
 
 
 @torch.no_grad()
@@ -56,16 +55,16 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``state = {"params": {name: tensor}, "opt": OptState}``;
-    ``batch = {"tokens": (B,S) int, "labels": (B,S) int}``.  With
+    ``batch = {"tokens": (B,S) int, "labels": (B,S) int}`` and, for the models
+    with cross-attention, ``audio_embed`` or ``vision_embed``.  With
     ``microbatches`` M > 1 the batch is cut into M row blocks whose gradients are
     summed in fp32 and divided by M, as the loss is.  Metrics (0-d tensors on the
     device): ``loss``, ``grad_norm``, ``lr``, ``tokens``.
     """
 
     def loss_fn(mb: dict) -> torch.Tensor:
-        rest, mods = _split_mods(mb)
-        _refuse_mods(mods)
-        return model.loss(rest["tokens"], rest["labels"], remat=remat)
+        rest, mods = _split_mods(model, mb)
+        return model.loss(rest["tokens"], rest["labels"], remat=remat, **mods)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = _bind_params(model, state["params"])
@@ -110,20 +109,19 @@ def init_train_state(model: LM, generator: torch.Generator) -> dict:
 
 def make_prefill_step(model: LM) -> Callable:
     """Returns ``prefill_step(batch) -> (last-token logits, stacked cache)``;
-    ``batch = {"tokens": (B,S) int}``."""
+    ``batch = {"tokens": (B,S) int, [audio_embed | vision_embed]}``."""
     def prefill_step(batch: dict):
-        rest, mods = _split_mods(batch)
-        _refuse_mods(mods)
-        return model.prefill(rest["tokens"])
+        rest, mods = _split_mods(model, batch)
+        return model.prefill(rest["tokens"], **mods)
     return prefill_step
 
 
 def make_serve_step(model: LM) -> Callable:
     """Returns ``serve_step(cache, batch) -> (logits, cache)``;
-    ``batch = {"tokens": (B,1) int, "pos": (B,) int}``.  The cache is the
-    flat per-layer tuple and is updated in place."""
+    ``batch = {"tokens": (B,1) int, "pos": (B,) int, [audio_embed |
+    vision_embed]}``.  The cache is the flat per-layer tuple and is updated in
+    place."""
     def serve_step(cache, batch: dict):
-        rest, mods = _split_mods(batch)
-        _refuse_mods(mods)
-        return model.decode_step(cache, rest["tokens"], rest["pos"])
+        rest, mods = _split_mods(model, batch)
+        return model.decode_step(cache, rest["tokens"], rest["pos"], **mods)
     return serve_step

@@ -1,6 +1,8 @@
 """The serving slice of the port as a whole against the JAX package: the four
 dense architectures at reduced size, float32 on the CPU, weights from the JAX
-package's ``LM.init`` handed to both sides as numpy."""
+package's ``LM.init`` handed to both sides as numpy.  The MoE and
+cross-attention families have files of their own (``test_torch_moe.py``,
+``test_torch_cross.py``)."""
 
 import dataclasses
 
@@ -216,17 +218,23 @@ def test_input_specs_match_reference(arch):
 # ------------------------------------------------------- what is refused
 
 
-@pytest.mark.parametrize("arch", [a for a in JAX_ARCH_IDS if a not in DENSE])
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "xlstm_125m"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported"):
         LM(get_config(arch).reduced(), device="cpu")
 
 
-def test_modality_inputs_raise():
-    m = LM(get_config("qwen2_7b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_prefill_step(m)({"tokens": torch.zeros((1, 2), dtype=torch.int64),
-                              "audio_embed": torch.zeros(1, 2, 4)})
+def test_dense_model_ignores_modality_inputs():
+    """As the reference's ``_memory`` returns None for a model without
+    cross-attention, a dense model's steps take a modality input and leave it
+    unused."""
+    m = LM(get_config("qwen2_7b").reduced(), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    tokens = torch.arange(6)[None] % m.cfg.vocab
+    base, _ = make_prefill_step(m)({"tokens": tokens})
+    for key in ("audio_embed", "vision_embed"):
+        got, _ = make_prefill_step(m)({"tokens": tokens, key: torch.ones(1, 3, m.cfg.d_model)})
+        assert torch.equal(got, base)
 
 
 @pytest.mark.parametrize("fault", ["missing", "extra", "shape"])

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving path goes on the GPU.
 
-Builds qwen2-7b (random weights from a seed, bf16) through the port's entry
-points, then traces one prefill and a few decode steps with torch.profiler
-and prints, per phase: wall time, device-busy time and idle share, and the
-device kernels by total time.  Needs a CUDA device.
+Builds a ported architecture (qwen2-7b unless --arch says otherwise; random
+weights from a seed, bf16; a cross-attention model's vision patches / audio
+frames are random embeddings at 0.02 scale) through the port's entry points,
+then traces one prefill and a few decode steps with torch.profiler and prints,
+per phase: wall time, device-busy time and idle share, and the device kernels
+by total time.  Needs a CUDA device.
 
-    PYTHONPATH=src python tools/profile_serve_torch.py [--layers N] [--batch 4]
-        [--seq 2048] [--steps 4] [--out DIR]
+    PYTHONPATH=src python tools/profile_serve_torch.py [--arch qwen2_7b] [--layers N]
+        [--batch 4] [--seq 2048] [--steps 4] [--out DIR]
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import modality_inputs  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.parallel.trainstep import (make_prefill_step,  # noqa: E402
                                             make_serve_step)
@@ -70,6 +73,7 @@ def untraced_ms(fn, reps: int) -> float:
 def main() -> None:
     """Build the model, trace one prefill and ``--steps`` decode steps."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2_7b")
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
@@ -83,7 +87,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    cfg = get_config("qwen2_7b")
+    cfg = get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
@@ -91,10 +95,11 @@ def main() -> None:
     B, S = args.batch, args.seq
     tokens = torch.randint(0, cfg.vocab, (B, S), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
+    mods = modality_inputs(cfg, B, torch.Generator(device=dev).manual_seed(2), dev)
     state = {}
 
     def do_prefill():
-        state["logits"], state["stacked"] = prefill({"tokens": tokens})
+        state["logits"], state["stacked"] = prefill({"tokens": tokens, **mods})
 
     def make_cache():
         cache = model.init_cache(B, S + 64, device=dev)
@@ -106,7 +111,7 @@ def main() -> None:
     def do_decode():
         pos = torch.full((B,), S + state["t"], device=dev)
         state["logits"], _ = serve(state["cache"],
-                                   {"tokens": tokens[:, :1], "pos": pos})
+                                   {"tokens": tokens[:, :1], "pos": pos, **mods})
         state["t"] += 1
 
     do_prefill()
@@ -130,7 +135,8 @@ def main() -> None:
     print(json.dumps(result, indent=1))
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
-        (Path(args.out) / "profile_serve.json").write_text(json.dumps(result, indent=1))
+        (Path(args.out) / f"profile_serve_{args.arch}.json").write_text(
+            json.dumps(result, indent=1))
 
 
 if __name__ == "__main__":
