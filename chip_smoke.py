@@ -6,50 +6,57 @@
     python3 chip_smoke.py --skip-serve --skip-train   # build and check the kernels, run small
     python3 chip_smoke.py --out DIR       # also write report.json(l) and nvcc's log there
 
-What it does, one JSON line per phase on standard output:
+What it does, one JSON line per phase on standard output, each with the card's SM
+and memory clocks, temperature and power draw (nvidia-smi) and the host's load
+average taken at the phase's start and end (read only, never a check):
 
   device   the card's name and power limit (nvidia-smi), torch and CUDA versions;
   build    builds the kernels' shared library from src/repro_torch/kernels/csrc/
            with nvcc (first use of the library);
   kernels  holds each hand-written kernel against its plain PyTorch version on the
-           card, at the reference's test cases and cases across the wgmma kernel's
+           card, at the reference's test cases and cases across the wgmma kernels'
            tile edges (fp32, bf16, fp16) and at the shapes the serving and training
            paths give it: the forwards, the attention forward's lse, and the two
            backwards (dq, dk, dv; dx, dw); records which flash variant each case
-           launched, forward and backward (one rule: 16-bit head_dim 64/128 wgmma,
-           other 16-bit mma.sync, fp32 scalar), shows that a call either wgmma kernel
+           launched, forward and backward (forward: 16-bit head_dim 64/128/256
+           wgmma; backward: 16-bit head_dim 64/128 wgmma; other 16-bit mma.sync,
+           fp32 scalar), shows that a call either wgmma kernel
            cannot take raises instead of running another variant, that two backward
            calls on the same inputs give dk, dv, dx and dw bit for bit (dq within
            tolerance: its sum runs through atomics), and times kernel, plain version,
            one library call (a yardstick only; the port never calls it; for the
            RMSNorm backward three readings in turns with the kernel, and the names of
            the kernels it launches) and the card's bound, and the device time of each
-           kernel an attention backward call launches; RMSNorm at the decode shape
-           also device-only, from a CUDA graph; the RMSNorm forward in turns with
-           F.rms_norm, three readings each; every flash and RMSNorm shape the
-           serve_moe, serve_vlm and serve_audio paths give the kernels (causal
-           self-attention, q/k-norm, cross-attention with more queries than keys at
-           ragged key counts, the encoder), the flash forward, lse and backward
-           held there and the forward timed beside SDPA;
+           kernel an attention backward call launches; the RMSNorm forward in
+           turns with F.rms_norm, three readings each, at every shape of every
+           path, and both device-only, replayed from a CUDA graph; every
+           flash and RMSNorm shape the family serves and the dense families
+           qwen3-32b and granite-34b give the kernels at full width (causal
+           self-attention, head_dim 256, one KV head, q/k-norm, cross-attention with
+           more queries than keys at ragged key counts, the encoder), the flash
+           forward, lse and backward held there and the forward timed beside SDPA;
   small    reduced fp32 models on the card (through the kernels) against the same
-           weights on the CPU (plain versions), one per family: qwen2-7b, qwen3-moe,
-           dbrx, llama-3.2-vision, whisper (the last two with a 32-token prompt, longer
-           than their 16 patches / 24 frames): prefill + decode with exact launch
-           counts, then three train steps (loss, grad norm, every parameter, exact
-           launch counts per step) and, for qwen2-7b, qwen3-moe and whisper, a
-           checkpoint round trip of the card's train state, bit for bit;
+           weights on the CPU (plain versions), one per family: qwen2-7b, gemma-7b,
+           qwen3-32b, granite-34b, qwen3-moe, dbrx, llama-3.2-vision, whisper (the
+           vision and audio ones with a 32-token prompt, longer than their 16
+           patches / 24 frames): prefill + decode with exact launch counts, then
+           three train steps (loss, grad norm, every parameter, exact launch counts
+           per step) and, for qwen2-7b, qwen3-moe and whisper, a checkpoint round
+           trip of the card's train state, bit for bit; for qwen3-moe also whether
+           two prefills on the same inputs give the same bits (recorded only);
   serve    qwen2-7b at full width and depth in bf16, random weights from a seed:
            4 requests of 2048 tokens through make_prefill_step, 16 greedy steps
            through make_serve_step, with the kernels' launch counts set to 0 just
            before and read just after (every prefill flash launch must be the
            wgmma variant); then the prefill/decode agreement check;
-  serve_moe, serve_vlm, serve_audio
+  serve_moe, serve_vlm, serve_audio, serve_gemma
            the same at full width and depth for qwen3-moe-30b-a3b (4 x 2048
            tokens), llama-3.2-vision-11b (4 x 2048 tokens against 1601 patch
-           embeddings, so its cross-attention has more queries than keys) and
-           whisper-medium (1500 audio frames, 4 x 448 tokens), each model freed
-           before the next; the agreement check for the last two (not for MoE: its
-           capacity depends on how many tokens a call holds);
+           embeddings, so its cross-attention has more queries than keys),
+           whisper-medium (1500 audio frames, 4 x 448 tokens) and gemma-7b (4 x 2048
+           tokens, head_dim 256), each model freed before the next; the agreement
+           check for all but MoE (its capacity depends on how many tokens a call
+           holds);
   train    (the serve model freed first) qwen2-7b at full width, 8 of 28 layers,
            bf16: the Trainer over SyntheticLM batches of 2 x 4096 tokens for 6
            steps, counts at 0 just before; exact launches of every kernel, forward
@@ -69,6 +76,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -97,13 +105,18 @@ FLASH_CASES = [
     (1, 100, 100, 2, 2, 256, True, 0),     # head_dim 256 (needs > 48 KB shared memory)
     (1, 70, 200, 4, 2, 64, False, 33),     # window without causal, ragged sizes
 ]
-# Cases across the TMA + wgmma kernel's 128-row q tile and 128-key kv tile edges
-# (head_dim 64 and 128, the shapes that kernel takes in 16 bits).
+# Cases across the TMA + wgmma kernel's 128-row q tile and its kv tile edges (128
+# keys at head_dim 64 and 128, 64 keys at head_dim 256: the shapes that kernel
+# takes in 16 bits).
 FLASH_TILE_EDGE_CASES = [
     (1, 129, 129, 4, 2, 128, True, 0),     # one row and one key past a tile
     (2, 255, 383, 28, 4, 128, True, 0),    # Sq < Skv, both ragged, qwen2-7b's heads
     (1, 300, 300, 4, 1, 64, True, 100),    # a window that spans tiles
     (2, 200, 200, 8, 8, 128, False, 0),    # bidirectional, ragged
+    (1, 129, 129, 4, 4, 256, True, 0),     # head_dim 256: a row and a key past a tile
+    (2, 191, 321, 8, 8, 256, True, 0),     # head_dim 256, Sq < Skv, both ragged
+    (1, 130, 130, 4, 1, 256, False, 0),    # head_dim 256, bidirectional, one KV head
+    (1, 300, 300, 2, 2, 256, True, 100),   # head_dim 256, a window over 64-key tiles
 ]
 # Cases across the wgmma backward's tiles (128 keys; 64 query rows at head_dim 128,
 # 128 at 64): ragged GQA with Sq < Skv, and a head_dim 64 window spanning two key tiles.
@@ -112,7 +125,8 @@ FLASH_BWD_EDGE_CASES = [
     (2, 260, 260, 8, 2, 64, True, 150),
 ]
 # softcap 20 on scores scaled by 3 x 3, as the reference's test has it
-FLASH_SOFTCAP_CASES = [(1, 64, 64, 2, 2, 32, True, 0), (1, 200, 200, 4, 2, 128, True, 0)]
+FLASH_SOFTCAP_CASES = [(1, 64, 64, 2, 2, 32, True, 0), (1, 200, 200, 4, 2, 128, True, 0),
+                       (1, 130, 130, 2, 2, 256, True, 0)]
 # Cross-attention: no mask, more queries than keys (key counts ragged against the
 # 128-key tile), every query tile of the forward and of the wgmma backward past the
 # last key tile.  Held in fp32, bf16 and fp16, forward, lse and backward.
@@ -128,8 +142,16 @@ FLASH_CROSS_CASES = [
 # kernel at every shape these paths give it (path_shapes below).
 FAMILY_SERVES = (("serve_moe", "qwen3_moe_30b_a3b", 2048, False),
                  ("serve_vlm", "llama_3p2_vision_11b", 2048, True),
-                 ("serve_audio", "whisper_medium", 448, True))
-SM90_HEAD_DIMS = (64, 128)   # 16-bit head_dims that must run on the wgmma kernel
+                 ("serve_audio", "whisper_medium", 448, True),
+                 ("serve_gemma", "gemma_7b", 2048, True))
+# Dense families too large to serve on one card (qwen3-32b: 65.5 GB of bf16 weights,
+# granite-34b: ~68 GB): their kernel shapes at full width (path_shapes) and their
+# reduced models (the small phase) are held instead.
+SHAPE_ONLY = (("qwen3_32b", 2048), ("granite_34b", 2048))
+SMALL_ARCHS = ("qwen2_7b", "gemma_7b", "qwen3_32b", "granite_34b", "qwen3_moe_30b_a3b",
+               "dbrx_132b", "llama_3p2_vision_11b", "whisper_medium")
+SM90_HEAD_DIMS = (64, 128, 256)   # 16-bit head_dims the forward runs on the wgmma kernel
+SM90_BWD_HEAD_DIMS = (64, 128)    # ... and the backward
 RMSNORM_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64)]
 
 # Tolerances (absolute and relative, as in the reference's tests), with reasons:
@@ -167,6 +189,34 @@ def emit(obj: dict) -> None:
     for path in REPORT_LINES:
         with path.open("a") as f:
             f.write(line + "\n")
+
+
+def probe() -> dict:
+    """The card's SM and memory clocks, temperature and power draw (nvidia-smi) and
+    the host's load average: read only, taken at each phase's start and end so that
+    a swing between runs can be traced to the card or the host; no check reads it."""
+    out: dict = {"loadavg": [round(x, 2) for x in os.getloadavg()]}
+    names = ("sm_clock_mhz", "mem_clock_mhz", "temp_c", "power_w")
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,power.draw",
+             "--format=csv,noheader,nounits"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True, timeout=30)
+        values = smi.stdout.strip().splitlines()[0].split(",")
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return {**out, "nvidia_smi": "unreadable"}
+    for name, value in zip(names, values):
+        try:
+            out[name] = float(value)
+        except ValueError:
+            out[name] = value.strip()
+    return out
+
+
+def with_clocks(obj: dict, start: dict) -> dict:
+    """obj with the probe taken at its phase's start and one taken now."""
+    obj["clocks"] = {"start": start, "end": probe()}
+    return obj
 
 
 def fail(msg: str) -> None:
@@ -226,6 +276,7 @@ def run(args, torch) -> None:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 checks need fp32
     report: dict = {}
+    start = probe()
 
     # ------------------------------------------------------------- device
     smi = subprocess.run(
@@ -239,9 +290,10 @@ def run(args, torch) -> None:
         "count": torch.cuda.device_count(),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
-    emit(report["device"])
+    emit(with_clocks(report["device"], start))
 
     # -------------------------------------------------------------- build
+    start = probe()
     t0 = time.perf_counter()
     _build.load()
     report["build"] = {
@@ -249,7 +301,7 @@ def run(args, torch) -> None:
         "nvcc_seconds": round(_build.build_info["seconds"], 2),
         "seconds": round(time.perf_counter() - t0, 2),
         "sources": [str(s.relative_to(ROOT)) for s in _build.sources()]}
-    emit(report["build"])
+    emit(with_clocks(report["build"], start))
     if args.out:
         (Path(args.out) / "nvcc.log").write_text(_build.build_info["log"])
 
@@ -322,6 +374,8 @@ def run(args, torch) -> None:
                             dtype=torch.float32) * scale).to(dtype)
 
     # ------------------------------------------------------------ kernels
+    start = probe()
+
     def flash_inputs(case, dtype, scale=1.0):
         B, Sq, Skv, H, KV, hd, _, _ = case
         return (randn((B, Sq, H, hd), dtype, scale),
@@ -333,10 +387,11 @@ def run(args, torch) -> None:
         version rounds its scores to 16 bits, which is its error, not the kernel's."""
         return ops.mha_reference(q.float(), k.float(), v.float(), **kw)
 
-    def expected_variant(dtype, hd) -> str:
+    def expected_variant(dtype, hd, backward: bool = False) -> str:
         if dtype == torch.float32:
             return "scalar"
-        return "sm90_wgmma" if hd in SM90_HEAD_DIMS else "mma_sync"
+        wgmma = SM90_BWD_HEAD_DIMS if backward else SM90_HEAD_DIMS
+        return "sm90_wgmma" if hd in wgmma else "mma_sync"
 
     def flash_case(case, dtype, tol, scale=1.0, softcap=0.0) -> dict:
         """One checked call; records the variant it launched and fails if that is
@@ -377,7 +432,7 @@ def run(args, torch) -> None:
         grads = flash_mod.launch_backward(q, k, v, o, lse, do, causal, window, softcap)
         after = ops.flash_bwd_launches_by_variant()
         ran = [key for key in after if after[key] != before[key]]
-        want_variant = expected_variant(dtype, case[5])
+        want_variant = expected_variant(dtype, case[5], backward=True)
         if ran != [want_variant] or flash_mod.bwd_variant(dtype, case[5]) != want_variant:
             fail(f"flash backward {case} {dtype}: launched {ran}, expected [{want_variant!r}]")
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -405,30 +460,40 @@ def run(args, torch) -> None:
 
     # A call the wgmma kernel cannot take must raise, never run another variant:
     # q one element past a 16-byte boundary (the wrapper refuses it first, so the
-    # C launcher is called directly) cannot be described by a tensor map.
-    case = FLASH_TILE_EDGE_CASES[0]
-    q, k, v = flash_inputs(case, torch.bfloat16)
-    q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
-    q_off.copy_(q)
-    o = torch.full_like(q, float("nan"))
-    torch.cuda.synchronize()
+    # C launcher is called directly) cannot be described by a tensor map.  Held at
+    # head_dim 128 and 256.
     lib = _build.load()
-    code = lib.repro_flash_attention_fwd(
-        q_off.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, case[0], case[1],
-        case[2], case[3], case[4], case[5], *q_off.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *o.stride()[:3], 1, 0, 0.0, _build.DTYPE_CODES[torch.bfloat16],
-        0, torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    try:
-        _build.check(code, "flash_attention")
-        raised = ""
-    except RuntimeError as exc:
-        raised = str(exc)
-    if code != -3 or not raised or not bool(torch.isnan(o).all()):
-        fail(f"misaligned q: launcher returned {code} (want -3, a refusal), "
-             f"raised {raised!r}, output touched: {not bool(torch.isnan(o).all())}")
-    refusal = {"case": list(case), "dtype": "torch.bfloat16", "q_offset_bytes": 2,
-               "code": code, "raised": raised}
+
+    def misaligned_q(case):
+        q, k, v = flash_inputs(case, torch.bfloat16)
+        q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+        q_off.copy_(q)
+        return q, k, v, q_off
+
+    refusal = []
+    for case in (FLASH_TILE_EDGE_CASES[0], FLASH_TILE_EDGE_CASES[4]):
+        q, k, v, q_off = misaligned_q(case)
+        o = torch.full_like(q, float("nan"))
+        torch.cuda.synchronize()
+        code = lib.repro_flash_attention_fwd(
+            q_off.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, case[0],
+            case[1], case[2], case[3], case[4], case[5], *q_off.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 1, 0, 0.0,
+            _build.DTYPE_CODES[torch.bfloat16], 0, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        try:
+            _build.check(code, "flash_attention")
+            raised = ""
+        except RuntimeError as exc:
+            raised = str(exc)
+        if code != -3 or not raised or not bool(torch.isnan(o).all()):
+            fail(f"misaligned q {case}: launcher returned {code} (want -3, a refusal), "
+                 f"raised {raised!r}, output touched: {not bool(torch.isnan(o).all())}")
+        refusal.append({"case": list(case), "dtype": "torch.bfloat16", "q_offset_bytes": 2,
+                        "code": code, "raised": raised})
+        del q, k, v, q_off, o
+    case = FLASH_TILE_EDGE_CASES[0]
+    q, k, v, q_off = misaligned_q(case)
 
     # the same for the backward's wgmma kernel: its launcher refuses before it
     # launches anything, and dq, dk, dv stay untouched
@@ -465,7 +530,13 @@ def run(args, torch) -> None:
     rms_cases = []
     for dtype, tol in ((torch.float32, TOL_RMSNORM_FP32),
                        (torch.bfloat16, TOL_16BIT), (torch.float16, TOL_16BIT)):
-        for shape in RMSNORM_SHAPES + [(3, 3584), (5, 7, 100), (2, 1027)]:
+        # past the row pipeline's edges: 1024 (the last row a lane group takes), 1032
+        # and 1027 (the pipeline; 1027 no whole 16-byte packs, the scalar kernels),
+        # 3072 / 6144 (gemma's, granite's), 16392 (past the pipeline's reach); lane
+        # groups of 4..32 lanes with 1..8 packs a lane (8, 200, 520), odd row counts
+        for shape in RMSNORM_SHAPES + [(3, 3584), (5, 7, 100), (2, 1027), (2, 1024),
+                                       (3, 1032), (5, 3072), (3, 6144), (2, 16392),
+                                       (9, 200), (3, 520), (5, 8), (7, 128)]:
             for wdtype in {dtype, torch.float32}:
                 x = randn(shape, dtype)
                 w = randn(shape[-1:], wdtype, 0.1) + 1
@@ -575,11 +646,50 @@ def run(args, torch) -> None:
             rms.append((B_REQ * c.audio_seq, d_))
         return flash, rms
 
-    # every shape the families' serving paths give the kernels, bf16: the flash
-    # forward, lse and backward checked (with the variant each launched), the
-    # forward timed; the RMSNorm forward checked
+    def timed_rmsnorm(shape, eps, name: str) -> dict:
+        """The bf16 forward at one (rows, d) shape, checked, then timed in turns with
+        F.rms_norm, three readings each (one reading of each, ~1 us apart, could not
+        tell them apart), beside the plain version's time and the bound; then both
+        device-only, replayed from a CUDA graph (a call of a few rows is bound by the
+        host's launch path, which the graph leaves out)."""
+        rows_, d_ = shape
+        x = randn(shape, bf16)
+        w = randn((d_,), bf16, 0.1) + 1
+        err = compare(name, ops.rmsnorm(x, w, eps=eps), ops.rmsnorm_reference(x, w, eps),
+                      TOL_16BIT)
+        rms_cases.append({"shape": list(shape), "dtype": str(bf16), "w_dtype": str(bf16),
+                          "max_abs_err": err, "tol": TOL_16BIT})
+        iters = 50 if rows_ > 100 else 200
+        bounds = {"bytes": 2.0 * (2 * x.numel() + w.numel()) / PEAK_BYTES_PER_S * 1e3,
+                  "operations": 4.0 * x.numel() / PEAK_FP32_FLOPS * 1e3}
+        ms_readings, lib_readings = [], []
+        for _ in range(3):
+            ms_readings.append(time_ms(lambda: ops.rmsnorm(x, w, eps=eps), iters))
+            lib_readings.append(time_ms(lambda: F.rms_norm(x, (d_,), w, eps), iters))
+        out = {"shape": [rows_, d_], "max_abs_err": err,
+               "ms": float(np.median(ms_readings)), "ms_readings": ms_readings,
+               "plain_ms": time_ms(lambda: ops.rmsnorm_reference(x, w, eps), iters),
+               "library_ms": float(np.median(lib_readings)),
+               "library_ms_readings": lib_readings,
+               "bound_ms": max(bounds.values()), "bound_by": max(bounds, key=bounds.get)}
+        calls = 20 if x.numel() > 1 << 22 else 200
+        out["graph_ms"] = graph_ms(lambda: ops.rmsnorm(x, w, eps=eps), calls)
+        out["library_graph_ms"] = graph_ms(lambda: F.rms_norm(x, (d_,), w, eps), calls)
+        out["no_slower_than_library"] = {"events": out["ms"] <= out["library_ms"],
+                                         "graph": out["graph_ms"] <= out["library_graph_ms"]}
+        del x, w
+        torch.cuda.empty_cache()
+        return out
+
+    # every shape the families' serving paths give the kernels at full width, and
+    # those of the dense families not served here, bf16: the flash forward, lse and
+    # backward checked (with the variant each launched), the forward timed beside
+    # SDPA; the RMSNorm forward checked and timed beside F.rms_norm
     path_timed: dict = {}
-    for phase, arch, prompt, _ in FAMILY_SERVES:
+    path_rms_timed: dict = {}
+    path_archs = [(phase, arch, prompt) for phase, arch, prompt, _ in FAMILY_SERVES]
+    path_archs += [(arch, arch, prompt) for arch, prompt in SHAPE_ONLY]
+    for phase, arch, prompt in path_archs:
         pcfg = get_config(arch)
         p_flash, p_rms = path_shapes(pcfg, prompt)
         for case in p_flash:
@@ -589,14 +699,8 @@ def run(args, torch) -> None:
             torch.cuda.empty_cache()
             path_timed.setdefault(phase, []).append(timed_flash(case, entry))
         for shape in p_rms:
-            x = randn(shape, bf16)
-            w = randn(shape[-1:], bf16, 0.1) + 1
-            err = compare(f"rmsnorm {shape} bf16 ({phase})",
-                          ops.rmsnorm(x, w, eps=pcfg.norm_eps),
-                          ops.rmsnorm_reference(x, w, pcfg.norm_eps), TOL_16BIT)
-            rms_cases.append({"path": phase, "shape": list(shape), "dtype": str(bf16),
-                              "w_dtype": str(bf16), "max_abs_err": err, "tol": TOL_16BIT})
-            del x, w
+            path_rms_timed.setdefault(phase, []).append(
+                timed_rmsnorm(shape, pcfg.norm_eps, f"rmsnorm {shape} bf16 ({phase})"))
         torch.cuda.empty_cache()
 
     # the training path's attention shape, bf16: the backward checked and timed, the
@@ -665,37 +769,9 @@ def run(args, torch) -> None:
     del q, k, v, do, o, lse, qt, kt, vt, dot, out
     torch.cuda.empty_cache()
 
-    rms_shapes = {}
-    for rows in (B_REQ * S_REQ, B_REQ):
-        x = randn((rows, d), bf16)
-        w = randn((d,), bf16, 0.1) + 1
-        err = compare(f"rmsnorm ({rows},{d}) bf16", ops.rmsnorm(x, w, eps=cfg.norm_eps),
-                      ops.rmsnorm_reference(x, w, cfg.norm_eps), TOL_16BIT)
-        iters = 50 if rows > 100 else 200
-        nbytes = 2.0 * (2 * x.numel() + w.numel())
-        bounds = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
-                  "operations": 4.0 * x.numel() / PEAK_FP32_FLOPS * 1e3}
-        # the kernel and F.rms_norm in turns, three readings each (one reading of
-        # each, ~1 us apart, could not tell them apart)
-        ms_readings, lib_readings = [], []
-        for _ in range(3):
-            ms_readings.append(time_ms(lambda: ops.rmsnorm(x, w, eps=cfg.norm_eps), iters))
-            lib_readings.append(time_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps), iters))
-        rms_shapes[rows] = {
-            "shape": [rows, d], "max_abs_err": err,
-            "ms": float(np.median(ms_readings)), "ms_readings": ms_readings,
-            "plain_ms": time_ms(lambda: ops.rmsnorm_reference(x, w, cfg.norm_eps), iters),
-            "library_ms": float(np.median(lib_readings)),
-            "library_ms_readings": lib_readings,
-            "bound_ms": max(bounds.values()),
-            "bound_by": max(bounds, key=bounds.get)}
-        if rows == B_REQ:
-            # the same calls replayed from a CUDA graph: the device's share of a call
-            # without the host's launch path (the wrapper's share is the difference)
-            rms_shapes[rows]["graph_ms"] = graph_ms(
-                lambda: ops.rmsnorm(x, w, eps=cfg.norm_eps), 200)
-        del x, w
-    torch.cuda.empty_cache()
+    # the serving path's two shapes (prefill, decode step)
+    rms_shapes = {rows: timed_rmsnorm((rows, d), cfg.norm_eps, f"rmsnorm ({rows},{d}) bf16")
+                  for rows in (B_REQ * S_REQ, B_REQ)}
 
     # RMSNorm backward at the training path's shape (2 x 4096 rows of d_model), bf16
     rows = B_TRAIN * S_TRAIN
@@ -752,7 +828,7 @@ def run(args, torch) -> None:
             **rms_shapes[B_REQ * S_REQ],
             "tol": TOL_16BIT,
             "worst_err_all_cases": max(c["max_abs_err"] for c in rms_cases),
-            "decode_shape": rms_shapes[B_REQ]},
+            "decode_shape": rms_shapes[B_REQ], "path_shapes": path_rms_timed},
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -766,6 +842,8 @@ def run(args, torch) -> None:
             "variant": main_entry["variant"], "launches_by_variant": {},
             "worst_err_all_cases": max(c["max_abs_err"] for c in flash_cases),
             "train_shape": {"q": [B_TRAIN, S_TRAIN, H, hd], **fwd_train},
+            # gemma-7b's prefill shape: the wgmma kernel's head_dim-256 layout
+            "head_dim_256": path_timed["serve_gemma"][0],
             "path_shapes": path_timed},
         "rmsnorm_bwd": {
             "name": "rmsnorm_bwd", "route": "cuda",
@@ -806,7 +884,7 @@ def run(args, torch) -> None:
         "flash_bwd_refusal": bwd_refusal, "rmsnorm_cases": rms_cases,
         "flash_bwd_cases": flash_bwd_cases, "rmsnorm_bwd_cases": rms_bwd_cases,
         "kernels": list(kernels.values())}
-    emit(report["kernels_checked"])
+    emit(with_clocks(report["kernels_checked"], start))
     stop_if_failed("kernels")
 
     # ------------------------------------------------------------ launches
@@ -882,6 +960,16 @@ def run(args, torch) -> None:
                 for k, n in forward_launches(small_cfg).items()}
         if small_counts != want:
             fail(f"small {arch}: launched {small_counts}, expected {want}")
+        moe_repeat = None
+        if small_cfg.n_experts:
+            # two prefills on the card on the same inputs: the combine's index_add
+            # sums in no fixed order there, so the bits may differ (recorded only)
+            md = {k: v.to(dev) for k, v in mods.items()}
+            first, _ = gpu_model.prefill(toks[:, :32].to(dev), **md)
+            again, _ = gpu_model.prefill(toks[:, :32].to(dev), **md)
+            moe_repeat = {"logits_bit_exact": bool(torch.equal(first, again)),
+                          "max_abs_diff": float((first - again).abs().max())}
+            del first, again, md
         del cpu_model, gpu_model
 
         # Three train steps on the card (kernels, forward and backward) against the
@@ -929,6 +1017,7 @@ def run(args, torch) -> None:
                         for name, p in cpu_state["params"].items())
         out = {"config": small_cfg.name, "dtype": "float32", "prompt_tokens": 32,
                "max_abs_err": small_err, "tol": 1e-3, "launches": small_counts,
+               **({"moe_prefill_repeat": moe_repeat} if moe_repeat else {}),
                "train": {"steps": 3, "batch": [4, 64], "metrics": train_metrics,
                          "max_abs_err_params": param_err, "tol": 1e-3,
                          "launches_per_step": per_step}}
@@ -952,12 +1041,12 @@ def run(args, torch) -> None:
             out["train"]["checkpoint_round_trip_bit_exact"] = same
         return out
 
+    start = probe()
     report["small"] = {"phase": "small", "models": {
         arch: small_phase(arch, checkpoint=arch in ("qwen2_7b", "qwen3_moe_30b_a3b",
                                                      "whisper_medium"))
-        for arch in ("qwen2_7b", "qwen3_moe_30b_a3b", "dbrx_132b",
-                     "llama_3p2_vision_11b", "whisper_medium")}}
-    emit(report["small"])
+        for arch in SMALL_ARCHS}}
+    emit(with_clocks(report["small"], start))
     stop_if_failed("small")
 
     # launches of each main path, counted from 0 just before it and read just after
@@ -973,6 +1062,7 @@ def run(args, torch) -> None:
     # prefill/decode agreement check.
     def serve_phase(phase: str, scfg, prompt: int, agree: bool) -> dict:
         L_ = scfg.n_layers
+        start = probe()
         t0 = time.perf_counter()
         model = LM(scfg, device=dev).init(torch.Generator(device=dev).manual_seed(args.seed))
         open_gates(model)
@@ -990,11 +1080,11 @@ def run(args, torch) -> None:
             return cache
 
         # warm-up (cuBLAS handles and work space), not counted
-        logits, stacked = prefill_step({"tokens": requests, **mods})
+        warm_logits, stacked = prefill_step({"tokens": requests, **mods})
         cache = right_size(stacked, prompt, prompt + CACHE_EXTRA)
         serve_step(cache, {"tokens": requests[:, :1],
                            "pos": torch.full((B_REQ,), prompt, device=dev), **mods})
-        del logits, stacked, cache
+        del stacked, cache
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
@@ -1010,11 +1100,17 @@ def run(args, torch) -> None:
         n_flash = want_prefill["flash_attention"]
         if counts_prefill != want_prefill:
             fail(f"{phase}: prefill launched {counts_prefill}, expected {want_prefill}")
-        if variants_prefill["sm90_wgmma"] != n_flash or sum(variants_prefill.values()) != n_flash:
+        want_kind = expected_variant(scfg.torch_dtype, scfg.hd)
+        if variants_prefill[want_kind] != n_flash or sum(variants_prefill.values()) != n_flash:
             fail(f"{phase}: prefill flash launches by variant {variants_prefill}: all "
-                 f"{n_flash} must be the wgmma kernel")
+                 f"{n_flash} must be the {want_kind} kernel")
         if tuple(logits.shape) != (B_REQ, scfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail(f"{phase}: prefill logits have the wrong shape or are not finite")
+        # the warm-up and this prefill took the same requests: the same bits or not
+        # (MoE's combine sums through atomics; recorded only)
+        repeat = {"logits_bit_exact": bool(torch.equal(warm_logits, logits)),
+                  "max_abs_diff": float((warm_logits.float() - logits.float()).abs().max())}
+        del warm_logits
         cache = right_size(stacked, prompt, prompt + CACHE_EXTRA)
         del stacked
         tok = logits.argmax(-1, keepdim=True)
@@ -1059,6 +1155,7 @@ def run(args, torch) -> None:
                "launches_prefill": counts_prefill,
                "flash_launches_prefill_by_variant": variants_prefill,
                "launches_per_decode_step": want_step, "launches_total": counts,
+               "prefill_repeat": repeat,
                "generated_ids_request0": ids[0].tolist()}
         if agree:
             # prefill/decode agreement through the kernels: the last position of a
@@ -1084,7 +1181,7 @@ def run(args, torch) -> None:
             out["agreement"] = {"tokens": n, "max_abs_diff": diff, "logit_std": spread,
                                 "tol": agree_tol}
             del full_logits, step_logits, stacked, cache
-        emit(out)
+        emit(with_clocks(out, start))
         stop_if_failed(phase)
         del model, prefill_step, serve_step, requests, mods
         torch.cuda.empty_cache()
@@ -1102,6 +1199,7 @@ def run(args, torch) -> None:
         tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
         L_ = tcfg.n_layers
         TRAIN_STEPS = 6
+        start = probe()
         t0 = time.perf_counter()
         trainer = Trainer(TrainerConfig(
             arch=tcfg, steps=TRAIN_STEPS, global_batch=B_TRAIN, seq_len=S_TRAIN,
@@ -1163,13 +1261,13 @@ def run(args, torch) -> None:
             "launches": counts, "launches_per_step": per_step,
             "flash_launches_by_variant": path_variants["train"],
             "flash_bwd_launches_by_variant": path_bwd_variants["train"]}
-        emit(report["train"])
+        emit(with_clocks(report["train"], start))
         stop_if_failed("train")
         del trainer, state
         torch.cuda.empty_cache()
 
-    # ---------------------------------------------- serve_moe, serve_vlm, serve_audio
-    # This slice's families at full width and depth, each freed before the next
+    # ------------------------------- serve_moe, serve_vlm, serve_audio, serve_gemma
+    # The other families at full width and depth, each freed before the next
     # (qwen3-moe alone holds 60.4 GB).  No prefill/decode agreement for MoE: the
     # capacity C depends on how many tokens a call holds, so a decode step of
     # B_REQ tokens (C = 1) drops pairs that the prefill kept (the reference's own
@@ -1197,7 +1295,7 @@ def run(args, torch) -> None:
     stop_if_failed("verdict")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype", "tol")
-    keys += ("variant", "launches_by_path", "launches_by_variant")
+    keys += ("variant", "launches_by_path", "launches_by_variant", "head_dim_256")
     kernels_line = {"kernels": [{key: kern[key] for key in keys if key in kern}
                                 for kern in kernels.values()]}
     final = {"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,9 @@
 //
 // The C entry point below picks one of three kernels by type and head_dim (the
 // rule is flash::variant_for in flash_attention.cuh; it is a split by shape, not a
-// fallback): bf16/fp16 at head_dim 64 and 128 -- the serving path's shapes -- take
-// the TMA + wgmma kernel of flash_attention_sm90.cu; bf16/fp16 at head_dim 16, 32
-// and 256 the mma.sync kernel of this file; float32 the scalar kernel of this file.
+// fallback): bf16/fp16 at head_dim 64, 128 and 256 -- the serving paths' shapes --
+// take the TMA + wgmma kernel of flash_attention_sm90.cu; bf16/fp16 at head_dim 16
+// and 32 the mma.sync kernel of this file; float32 the scalar kernel of this file.
 //
 // Bound on this card: operations.  At the prefill shape (S = 2048, hd = 128) the
 // kernel does ~S*hd/2 flops per byte of q/k/v/o it must move, well above the ~295
@@ -28,8 +28,8 @@
 //     padded shared memory (V fragments by ldmatrix.trans);
 //   * the K/V tiles are double-buffered: cp.async fetches tile i+1 into the
 //     second stage while tile i is computed, so global-memory latency is hidden
-//     behind the products; for head_dim <= 128 the Q fragments are read from
-//     shared memory once and stay in registers for the whole kv loop;
+//     behind the products; the Q fragments are read from shared memory once and
+//     stay in registers for the whole kv loop;
 //   * the kv loop starts at the window's edge and stops at the diagonal instead
 //     of visiting fully masked tiles, and heavy (late) q tiles are scheduled first;
 //   * ragged tails are masked (rows >= Sq are not stored, keys >= Skv are masked),
@@ -37,8 +37,7 @@
 //   * GQA is pointer arithmetic: head h reads kv head h / (H / KV) through the
 //     strides it is given; K/V are never repeated or transposed in memory.
 // It is latency-bound inside the warp (PERF.md), which is why the serving
-// shapes moved to wgmma; head_dim 256 stays here until the wgmma kernel gets a
-// shared-memory budget of its own for it.  fp32 inputs take a scalar-FMA kernel (a
+// shapes moved to wgmma.  fp32 inputs take a scalar-FMA kernel (a
 // warp per query row); it exists for the tight-tolerance comparison with the plain
 // version, not for speed.
 
@@ -75,7 +74,6 @@ __global__ void __launch_bounds__(BM * 2) flash_fwd_mma_kernel(const Params p) {
   constexpr int NT = BM * 2;    // one warp per 16 query rows
   constexpr int LDS = HD + 8;   // padded row: fragment loads hit 32 distinct banks
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool kQInRegs = HD <= 128;  // head_dim 256 would not fit the register file
   T* sQ = reinterpret_cast<T*>(smem_raw);
   T* sKV = sQ + BM * LDS;  // two stages, each a K tile followed by a V tile
 
@@ -114,7 +112,7 @@ __global__ void __launch_bounds__(BM * 2) flash_fwd_mma_kernel(const Params p) {
   const int row_q[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const int qpos[2] = {row_q[0] + offset, row_q[1] + offset};
   const T* q_frag = sQ + (warp * 16 + g) * LDS + t * 2;
-  uint32_t q_regs[kQInRegs ? HD / 16 : 1][4];
+  uint32_t q_regs[HD / 16][4];
 
   int stage = 0;
   for (int n0 = kv_lo; n0 < kv_hi; n0 += BN, stage ^= 1) {
@@ -132,11 +130,9 @@ __global__ void __launch_bounds__(BM * 2) flash_fwd_mma_kernel(const Params p) {
     __syncthreads();  // this stage (and, the first time round, sQ) is visible to all
     const T* sK = sKV + stage * 2 * BN * LDS;
     const T* sV = sK + BN * LDS;
-    if constexpr (kQInRegs) {
-      if (n0 == kv_lo) {
+    if (n0 == kv_lo) {
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) load_q_fragment(q_regs[kk], q_frag + kk * 16, LDS);
-      }
+      for (int kk = 0; kk < HD / 16; ++kk) load_q_fragment(q_regs[kk], q_frag + kk * 16, LDS);
     }
 
     // s = q k^T for this warp's 16 rows and the tile's BN keys
@@ -147,17 +143,10 @@ __global__ void __launch_bounds__(BM * 2) flash_fwd_mma_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      if constexpr (kQInRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = q_regs[kk][e];
-      } else {
-        load_q_fragment(a, q_frag + kk * 16, LDS);
-      }
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const T* k_frag = sK + (j * 8 + g) * LDS + kk * 16 + t * 2;
-        Mma<T>::mma(s[j], a, lds32(k_frag), lds32(k_frag + 8));
+        Mma<T>::mma(s[j], q_regs[kk], lds32(k_frag), lds32(k_frag + 8));
       }
     }
 
@@ -241,18 +230,9 @@ __global__ void __launch_bounds__(BM * 2) flash_fwd_mma_kernel(const Params p) {
 template <typename T, int HD, int BM, int BN>
 cudaError_t launch_mma(const Params& p, cudaStream_t st) {
   constexpr int smem = (BM + 4 * BN) * (HD + 8) * (int)sizeof(T);  // Q + 2 stages of K, V
-  auto kern = flash_fwd_mma_kernel<T, HD, BM, BN>;
-  if (smem > 48 * 1024) {
-    static bool raised = false;  // per instantiation
-    if (!raised) {
-      cudaError_t e =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return e;
-      raised = true;
-    }
-  }
+  static_assert(smem <= 48 * 1024, "the mma.sync forward's head_dims fit the default limit");
   dim3 grid((p.Sq + BM - 1) / BM, p.H, p.B);
-  kern<<<grid, BM * 2, smem, st>>>(p);
+  flash_fwd_mma_kernel<T, HD, BM, BN><<<grid, BM * 2, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -261,7 +241,6 @@ int dispatch_mma(const Params& p, int hd, cudaStream_t st) {
   switch (hd) {
     case 16: return (int)launch_mma<T, 16, 64, 64>(p, st);
     case 32: return (int)launch_mma<T, 32, 64, 64>(p, st);
-    case 256: return (int)launch_mma<T, 256, 64, 32>(p, st);
     default: return -1;
   }
 }
@@ -379,7 +358,7 @@ int dispatch_scalar(const Params& p, int hd, cudaStream_t st) {
 // The kernel a call of that type and head_dim launches: 0 scalar, 1 mma.sync,
 // 2 TMA + wgmma (flash_attention_sm90.cu); -1 if none is compiled in.
 extern "C" int repro_flash_attention_variant(int hd, int dtype) {
-  return flash::variant_for(hd, dtype);
+  return flash::variant_for(hd, dtype, false);
 }
 
 // Strides are in elements; the head_dim stride must be 1 and, for 16-bit types,
@@ -413,7 +392,7 @@ extern "C" int repro_flash_attention_fwd(
   flash::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (flash::variant_for(hd, dtype)) {
+  switch (flash::variant_for(hd, dtype, false)) {
     case flash::kScalar: return dispatch_scalar(p, hd, st);
     case flash::kMmaSync:
       return dtype == 1 ? dispatch_mma<__nv_bfloat16>(p, hd, st) : dispatch_mma<__half>(p, hd, st);

@@ -8,7 +8,7 @@
 // mha_reference) and compute its contract, stated in flash_attention.cu.  This
 // header holds what they must agree on: the calls' parameters, the kv range a query
 // tile can see and the query range a key tile can see, the scalar score rule and the
-// choice of kernel by type and head_dim (one rule, forward and backward).
+// choice of kernel by type and head_dim, forward and backward.
 //
 // Bound on this card: operations (see flash_attention.cu); nothing here moves data.
 
@@ -71,15 +71,29 @@ __host__ __device__ inline int sq_pad(int sq) { return (sq + kSqPad - 1) / kSqPa
 // repro_flash_attention_bwd_variant report them.
 enum Variant { kScalar = 0, kMmaSync = 1, kSm90Wgmma = 2 };
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The split by shape:
-// 16-bit inputs at head_dim 64 and 128 take the TMA + wgmma kernel; the other
-// 16-bit head_dims (16, 32, 256) the mma.sync kernel; float32 the scalar one.
-// -1: not compiled in.
-inline int variant_for(int hd, int dtype) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256) return -1;
+// The head_dims compiled in, and the 16-bit ones the TMA + wgmma kernels take:
+// the forward at 64, 128 and 256, the backward at 64 and 128 (at 256 it keeps the
+// mma.sync kernels).
+constexpr int kHeadDims[] = {16, 32, 64, 128, 256};
+constexpr int kSm90HeadDims[] = {64, 128, 256};
+constexpr int kSm90BwdHeadDims[] = {64, 128};
+
+template <int N>
+inline bool one_of(const int (&set)[N], int hd) {
+  for (int x : set)
+    if (x == hd) return true;
+  return false;
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The split by shape: 16-bit
+// inputs at the head_dims above take the TMA + wgmma kernel; the other 16-bit
+// head_dims the mma.sync kernel; float32 the scalar one.  -1: not compiled in.
+inline int variant_for(int hd, int dtype, bool backward) {
+  if (!one_of(kHeadDims, hd)) return -1;
   if (dtype == 0) return kScalar;
   if (dtype != 1 && dtype != 2) return -1;
-  return (hd == 64 || hd == 128) ? kSm90Wgmma : kMmaSync;
+  const bool wgmma = backward ? one_of(kSm90BwdHeadDims, hd) : one_of(kSm90HeadDims, hd);
+  return wgmma ? kSm90Wgmma : kMmaSync;
 }
 
 // Range of kv positions that a tile of query rows [q0, q0 + rows) can see, as

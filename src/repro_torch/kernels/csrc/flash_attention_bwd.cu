@@ -41,7 +41,7 @@
 // warp per key or per query row, a lane per pair), for the tight comparison with the
 // plain version, not for speed.
 //
-// The C entry point below picks the kernels by type and head_dim with the forward's
+// The C entry point below picks the kernels by type and head_dim with the backward's
 // rule (flash::variant_for): 16-bit inputs at head_dim 64 and 128 -- the training
 // path's shapes -- take the one-pass TMA + wgmma kernel of flash_attention_bwd_sm90.cu
 // (dq summed by atomics); the other 16-bit head_dims (16, 32, 256) the mma.sync passes
@@ -714,9 +714,9 @@ struct FlashBwdCall {
 };
 
 // The kernels a backward call of that type and head_dim launches: 0 scalar,
-// 1 mma.sync, 2 TMA + wgmma (the forward's rule); -1 if none is compiled in.
+// 1 mma.sync, 2 TMA + wgmma (the backward's rule); -1 if none is compiled in.
 extern "C" int repro_flash_attention_bwd_variant(int hd, int dtype) {
-  return flash::variant_for(hd, dtype);
+  return flash::variant_for(hd, dtype, true);
 }
 
 // Launches the backward's kernels on `stream` of CUDA device `device`: D, pass A and
@@ -749,7 +749,7 @@ extern "C" int repro_flash_attention_bwd(const FlashBwdCall* c) {
   flash::DeviceGuard guard(c->device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);
-  if (flash::variant_for(c->hd, c->dtype) == flash::kSm90Wgmma)
+  if (flash::variant_for(c->hd, c->dtype, true) == flash::kSm90Wgmma)
     return flash::launch_bwd_sm90(p, c->hd, c->dtype, st);
   cudaError_t e;
   switch (c->dtype) {

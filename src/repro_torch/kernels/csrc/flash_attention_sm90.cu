@@ -1,5 +1,5 @@
 // Fused attention forward for Hopper (sm_90a): TMA + wgmma, warp-specialised.
-// 16-bit inputs (bf16, fp16) at head_dim 64 and 128; plain C++ launcher called
+// 16-bit inputs (bf16, fp16) at head_dim 64, 128 and 256; plain C++ launcher called
 // from repro_flash_attention_fwd (flash_attention.cu) through flash::launch_sm90.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel,
@@ -19,7 +19,9 @@
 // by latency inside the warp at ~3,050 cycles per 64x64 tile against ~1,100 for
 // the tensor cores.  What this design does about it (FlashAttention-3's shape):
 //   * a persistent grid, one block per SM, each walking work tiles of (128-row q
-//     tile, q head, batch), latest q tiles first so the heaviest go out first;
+//     tile, q head, batch), latest q tiles first so the heaviest go out first,
+//     and with one query head a KV head, groups of neighbouring q tiles of one head
+//     out together, so that K/V tiles are read from L2 by ~8 blocks;
 //     3 warpgroups: warpgroup 0 is the producer (setmaxnreg.dec to 40; one thread
 //     issues every TMA load), warpgroups 1 and 2 are consumers of 64 query rows
 //     each (setmaxnreg.inc 232);
@@ -27,8 +29,8 @@
 //     consumers finish the current one's last P V and store its output, so a
 //     short causal work tile does not pay its loads in the open;
 //   * TMA brings each Q tile once and K/V tiles of 128 keys through a two-stage
-//     ring in shared memory, 128-byte swizzled, a 128-wide head as two 64-column
-//     boxes; full[stage] barriers count the bytes, empty[stage] barriers one
+//     ring in shared memory, 128-byte swizzled, a head as 64-column boxes (two at
+//     head_dim 128); full[stage] barriers count the bytes, empty[stage] barriers one
 //     arrival per consumer warp, separately for K and V so the next K tile can
 //     land while the current V tile is still read;
 //   * S = Q K^T is wgmma m64n128k16 with both operands read from shared memory
@@ -45,9 +47,30 @@
 //   * the kv loop runs from the window's edge to the diagonal;
 //   * rows past Sq / Skv are zero-filled by TMA; the kpos < Skv mask term stays
 //     (a zero key scores 0, not -inf); rows >= Sq are not stored.
-// Not done yet (ROADMAP K2-fast): head_dim 256; wider kv tiles for head_dim 64.
+// Head_dim 256 (gemma-7b) keeps the same shape with its own shared-memory and
+// register budget (Cfg<256>): two Q buffers of 128 x 256 would take 128 KB and a
+// 128-key K or V tile 64 KB a stage, so it has
+//   * one Q buffer (64 KB): the next work tile's Q lands once the consumers have
+//     issued the current one's last S product, still during its last P V and
+//     epilogue;
+//   * K/V tiles of 64 keys (32 KB each, four 64-column boxes) in the two-stage ring
+//     (128 KB): 192 KB in all of the 227 KB;
+//   * S = Q K^T as wgmma m64n64k16 over 16 k-steps, O += P V as two m64n128k16
+//     register-sourced products a k-step, one over each 128-column half of V;
+//   * O takes 128 fp32 registers a consumer thread, so the producer gives up all it
+//     can (setmaxnreg.dec 24) and the consumers take 240; S (32), P (16) and O (128)
+//     fit beside each other, so the overlap of S_i with P_{i-1} V_{i-1} stays.
+// Measured at gemma's shape (tools/flash_fwd_phases.py, PERF.md): a steady kv step
+// takes ~3,200 SM cycles against 2,048 for its products at the tensor cores' peak,
+// and hardly less (~3,150) with the exponentials taken out, so the products, not
+// the softmax, set the pace.  Tried there and dropped: 80-key tiles (m64n80k16),
+// a third K stage, one m64n256k16 product for P V, no overlap inside a warpgroup,
+// a second producer thread for V, strict turns of the two warpgroups (named
+// barriers: 1.6x slower).  What did
+// gain (~10 % at H = KV) was handing out neighbouring q tiles of a head together.
+// Not done yet (ROADMAP K2-fast): wider kv tiles for head_dim 64.
 // Letting the two consumer warpgroups take strict turns at the tensor cores
-// (named barriers) was measured and gained nothing at the prefill shape.
+// (named barriers) was measured and gained nothing at the prefill shape either.
 // A barrier wait that never completes traps after 4 s instead of hanging the card.
 // The PTX helpers, wgmma instructions and the tensor-map encoder are sm90.cuh's,
 // shared with the backward (flash_attention_bwd_sm90.cu).
@@ -65,24 +88,38 @@ namespace flash {
 namespace {
 
 constexpr int kBM = 128;          // query rows per block (two consumer warpgroups)
-constexpr int kBN = 128;          // keys per K/V tile
 constexpr int kStages = 2;
 constexpr int kThreads = 384;     // producer + two consumer warpgroups
+constexpr int kQGroup = 8;        // neighbouring q tiles handed out together (H = KV)
+
+// What differs by head_dim: keys per K/V tile, Q buffers and the warpgroups' share
+// of the register file (head_dim 256: see the note at the top).
+template <int HD>
+struct Cfg {
+  static constexpr bool kWide = HD == 256;
+  static constexpr int kBN = kWide ? 64 : 128;
+  static constexpr int kQBufs = kWide ? 1 : 2;
+  static constexpr int kProducerRegs = kWide ? 24 : 40;
+  static constexpr int kConsumerRegs = kWide ? 240 : 232;
+  static_assert(kProducerRegs * 128 + kConsumerRegs * 256 <= 65536, "register file");
+};
 
 // ----------------------------------------------------------------------- kernel
 
 template <int HD>
 struct Smem {
+  static constexpr int kBN = Cfg<HD>::kBN;
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kQBytes = kBM * HD * 2;
   static constexpr int kKVBytes = kBN * HD * 2;   // one K or one V tile
-  static constexpr int kQ = 0;                    // two Q tiles: the next tile's Q
-  static constexpr int kK = kQ + 2 * kQBytes;     // lands while this one's runs
+  static constexpr int kQ = 0;                    // Q tiles: with two, the next tile's
+  static constexpr int kK = kQ + Cfg<HD>::kQBufs * kQBytes;  // lands while this one's runs
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kBar = kV + kStages * kKVBytes;
   // barriers: q_full[2], q_empty[2], k_full[2], v_full[2], k_empty[2], v_empty[2]
   static constexpr int kBytes = kBar + 16 * 8;
   static constexpr int kAlloc = kBytes + 1024;    // room to align the base to 1024
+  static_assert(kAlloc <= 232448, "shared memory a block can use");
 };
 
 template <typename T, int HD>
@@ -91,6 +128,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using S = Smem<HD>;
+  using C = Cfg<HD>;
+  constexpr int kBN = C::kBN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // every tile starts on a 1024-byte boundary: the swizzle pattern's period
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -111,8 +150,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   // backwards (a block that got a heavier tile in one round gets a lighter one in
   // the next): the most work a block gets is ~1.5 % above the mean at the
   // prefill shape, against ~7 % for plain round robin.
+  // K/V tiles come from L2 when the blocks reading one KV head run together.  With
+  // several query heads a KV head, neighbouring work tiles already share it; with
+  // one (H = KV: gemma, whisper), kQGroup neighbouring q tiles of a head are handed
+  // out together (q tile inside the group, then head and batch).  Measured: ~10 %
+  // faster at gemma's shape; the same grouping made 7:1 GQA ~4 % slower.
   const int n_qt = (p.Sq + kBM - 1) / kBM;
   const int n_work = n_qt * p.H * p.B;
+  const int HB = p.H * p.B;
+  const int qg = p.H == p.KV ? kQGroup : 1;
+  const int qg_full = n_qt / qg * qg;  // q tiles in whole groups
   struct Work {
     int q0, h, b, kvh, kv_lo, n_tiles;
   };
@@ -122,8 +169,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   auto work = [&](int w) {
     Work t;
-    const int hb = w % (p.H * p.B);
-    t.q0 = (n_qt - 1 - w / (p.H * p.B)) * kBM;
+    int qi, hb;  // the q tile (0 = the latest) and (head, batch)
+    if (w < qg_full * HB) {
+      qi = w / (qg * HB) * qg + w % qg;
+      hb = w / qg % HB;
+    } else {     // the last, partial group
+      const int r = w - qg_full * HB, rest = n_qt - qg_full;
+      qi = qg_full + r % rest;
+      hb = r / rest;
+    }
+    t.q0 = (n_qt - 1 - qi) * kBM;
     t.h = hb % p.H;
     t.b = hb / p.H;
     t.kvh = t.h / (p.H / p.KV);
@@ -134,7 +189,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
 
   if (threadIdx.x == 0) {
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < C::kQBufs; ++u) {
       mbar_init(q_full(u), 1);
       mbar_init(q_empty(u), 8);  // one arrival per consumer warp
     }
@@ -151,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs) : "memory");
     if (threadIdx.x == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_k))
                    : "memory");
@@ -162,8 +217,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       int g = 0;
       for (int j = 0, w = work_index(0); w < n_work; w = work_index(++j)) {
         const Work t = work(w);
-        const int u = j & 1;
-        mbar_wait(q_empty(u), ((j >> 1) & 1) ^ 1);  // work tiles 0, 1: fresh barriers pass
+        const int u = j % C::kQBufs;
+        // each buffer's first work tile: a fresh barrier passes
+        mbar_wait(q_empty(u), ((j / C::kQBufs) & 1) ^ 1);
         mbar_expect_tx(q_full(u), S::kQBytes);
 #pragma unroll
         for (int x = 0; x < S::kBoxes; ++x)
@@ -187,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // ----------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs) : "memory");
     const int c = wg - 1;                     // which 64 rows of the tile
     const int t = threadIdx.x & 127;
     const int warp = t >> 5, lane = t & 31;
@@ -209,8 +265,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     uint32_t pa[kBN / 16][4];  // P of the previous tile, the A operand of its P V
 
-    // S = Q K^T for the tile in stage s: 64 rows x 128 keys, K-major A and B,
-    // 32 bytes a k16 step, the second 64 columns of a 128-wide head in the next box
+    // S = Q K^T for the tile in stage s: 64 rows x kBN keys, K-major A and B,
+    // 32 bytes a k16 step, each further 64 columns of the head in the next box
     auto issue_qk = [&](int s) {
       const uint64_t qd = opaque(smem_desc(q_tile + c * 64 * 128, 16, 1024));
       const uint64_t kd = opaque(smem_desc(sK(s), 16, 1024));
@@ -223,12 +279,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_commit();
     };
     // O += P V for the tile in stage s: V is MN-major, 16 keys are two 8-row
-    // groups (SBO 1024), the second 64 columns of a 128-wide head the next box (LBO)
+    // groups (SBO 1024), the second 64 columns of a 128-wide slice the next box
+    // (LBO); head_dim 256 as two 128-wide slices, each its own product into its
+    // half of O (columns 128h.. are O's registers 64h..)
     auto issue_pv = [&](int s) {
       const uint64_t vd = opaque(smem_desc(sV(s), kBN * 128, 1024));
+      if constexpr (HD <= 128) {
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-        Wg<T>::template rs<HD>(o, pa[kk], vd + ((kk * 16 * 128) >> 4), 1);
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          Wg<T>::template rs<HD>(o, pa[kk], vd + ((kk * 16 * 128) >> 4), 1);
+      } else {
+#pragma unroll
+        for (int h = 0; h < HD / 128; ++h)
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk)
+            Wg<T>::template rs<128>(*reinterpret_cast<float(*)[64]>(o + 64 * h), pa[kk],
+                                    vd + ((h * 2 * kBN * 128 + kk * 16 * 128) >> 4), 1);
+      }
       wgmma_commit();
     };
     // after a P V group was waited on: O and P may be touched again
@@ -327,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     int gt = 0;
     for (int j = 0, w = work_index(0); w < n_work; w = work_index(++j)) {
       const Work tw = work(w);
-      const int u = j & 1;
+      const int u = j % C::kQBufs;
       q_tile = sQ(u);
       r_lo = tw.q0 + c * 64;
       row[0] = r_lo + warp * 16 + g;
@@ -339,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       m_row[0] = m_row[1] = kNegInf;
       l_row[0] = l_row[1] = 0.f;
 
-      mbar_wait(q_full(u), (j >> 1) & 1);
+      mbar_wait(q_full(u), (j / C::kQBufs) & 1);
       if (tw.n_tiles > 0) {
         float alpha[2];
         mbar_wait(k_full(gt & 1), (gt >> 1) & 1);
@@ -409,6 +476,7 @@ int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -4;
   CUtensorMap tq, tk, tv;
+  constexpr int kBN = Cfg<HD>::kBN;
   if (!encode(fn, &tq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM) ||
       !encode(fn, &tk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
       !encode(fn, &tv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN))
@@ -436,9 +504,11 @@ int launch_sm90(const Params& p, int hd, int dtype, cudaStream_t st) {
   if (dtype == 1) {
     if (hd == 64) return launch<__nv_bfloat16, 64>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 128) return launch<__nv_bfloat16, 128>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+    if (hd == 256) return launch<__nv_bfloat16, 256>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   } else if (dtype == 2) {
     if (hd == 64) return launch<__half, 64>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 128) return launch<__half, 128>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
+    if (hd == 256) return launch<__half, 256>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
   }
   return -1;
 }

@@ -10,10 +10,10 @@ dq); on the CPU both are the plain versions of ``ref``.  A call without
 gradients (serving) launches the forward kernel alone and writes no ``lse``.
 
 Which kernel a CUDA call launches is the library's own rule (``variant``,
-``bwd_variant``), the same forward and backward: 16-bit inputs at head_dim 64 and
-128 take the TMA + wgmma kernels, the other 16-bit head_dims the mma.sync kernels,
-float32 the scalar kernels.  A variant that cannot run (a tensor map that cannot be
-encoded, a refused launch) raises; no other variant stands in for it.
+``bwd_variant``): 16-bit inputs take the TMA + wgmma kernels at head_dim 64, 128
+and 256 forward and at 64 and 128 backward, the mma.sync kernels at the other
+head_dims; float32 the scalar kernels.  A variant that cannot run (a tensor map
+that cannot be encoded, a refused launch) raises; no other variant stands in for it.
 """
 
 from __future__ import annotations

@@ -56,7 +56,19 @@ PALLAS_TILE_CASES = [
     (1, 256, 256, 28, 4, 128, True, 0),
     (1, 128, 384, 4, 2, 128, False, 0),
 ]
-RMS_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64)]
+# head_dim 256 (gemma-7b; the wgmma kernel's 64-key tiles): gemma's layout (H = KV),
+# and a causal case across the 64-key tile, both at multiples of the Pallas test's
+# 32-row block; then a ragged Sq < Skv case, for the plain reference alone.
+HD256_PALLAS_CASES = [
+    (2, 128, 128, 4, 4, 256, True, 0),
+    (1, 160, 160, 2, 1, 256, True, 0),
+]
+HD256_RAGGED_CASES = [(1, 100, 170, 2, 2, 256, True, 0)]
+# The reference's shapes, then the RMSNorm forward's kernel edges: 1024 (the widest
+# row a lane group takes), 1032 (the narrowest the row pipeline takes), gemma's
+# 3072 and granite's 6144, an odd row count, a width that is not a multiple of 8.
+RMS_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64),
+              (2, 1024), (3, 1032), (5, 3072), (3, 6144), (7, 128), (3, 100)]
 
 
 def _qkv(case, seed, scale=1.0):
@@ -72,8 +84,10 @@ def _t(*arrs):
     return [torch.from_numpy(a) for a in arrs]
 
 
-@pytest.mark.parametrize("case", CASES + PALLAS_TILE_CASES,
-                         ids=[str(c) for c in CASES + PALLAS_TILE_CASES])
+PALLAS_CASES = CASES + PALLAS_TILE_CASES + HD256_PALLAS_CASES
+
+
+@pytest.mark.parametrize("case", PALLAS_CASES, ids=[str(c) for c in PALLAS_CASES])
 def test_mha_reference_matches_pallas_kernel(case):
     q, k, v = _qkv(case, 1)
     kw = dict(causal=case[6], window=case[7])
@@ -83,7 +97,8 @@ def test_mha_reference_matches_pallas_kernel(case):
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
 
 
-ORACLE_CASES = CASES + TILE_EDGE_CASES + PALLAS_TILE_CASES
+ORACLE_CASES = (CASES + TILE_EDGE_CASES + PALLAS_TILE_CASES + HD256_PALLAS_CASES
+                + HD256_RAGGED_CASES)
 
 
 @pytest.mark.parametrize("case", ORACLE_CASES, ids=[str(c) for c in ORACLE_CASES])
@@ -354,7 +369,7 @@ BWD_EDGE_CASES = [
     (2, 260, 260, 8, 2, 64, True, 150),
 ]
 BWD_CASES = (CASES + [(1, 64, 64, 2, 2, 32, True, 0, 20.0), (1, 96, 128, 4, 2, 32, True, 0, 20.0)]
-             + TILE_EDGE_CASES + BWD_EDGE_CASES)
+             + TILE_EDGE_CASES + BWD_EDGE_CASES + HD256_PALLAS_CASES + HD256_RAGGED_CASES)
 
 
 def _case_kw(case):
@@ -536,3 +551,76 @@ def test_backward_scratch_shapes(kind):
         assert tuple(dq_acc.shape) == (2, 28, 256, 128) and dq_acc.dtype == torch.float32
     else:
         assert tuple(delta.shape) == (2, 28, 191) and dq_acc is None
+
+
+def _c_int_list(source: str, name: str) -> list:
+    """The values of ``constexpr int name[] = {...};`` in a csrc file."""
+    body = re.search(r"constexpr int " + name + r"\[\] = \{([^}]*)\};",
+                     (CSRC / source).read_text()).group(1)
+    return [int(v) for v in body.split(",")]
+
+
+def _compiled_head_dims(source: str, function: str, pattern: str) -> set:
+    """Head_dims that ``function`` of a csrc file dispatches to a kernel."""
+    text = (CSRC / source).read_text()
+    body = re.search(function + r"\(.*?\n\}", text, re.S).group(0)
+    return {int(hd) for hd in re.findall(pattern, body)}
+
+
+def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
+    """``flash::variant_for`` in ``flash_attention.cuh``, read from the source: 16-bit
+    head_dim 256 takes the TMA + wgmma kernel (kSm90Wgmma) forward and the mma.sync
+    kernels backward; every head_dim the rule sends to a kernel is compiled into
+    that kernel's dispatch, forward and backward; no library is loaded."""
+    header = (CSRC / "flash_attention.cuh").read_text()
+    enum = dict((name, int(code)) for name, code in
+                re.findall(r"(k\w+) = (\d+)", re.search(r"enum Variant \{([^}]*)\}",
+                                                        header).group(1)))
+    assert [flash_mod.VARIANTS[enum[k]] for k in ("kScalar", "kMmaSync", "kSm90Wgmma")] == \
+        ["scalar", "mma_sync", "sm90_wgmma"]
+    body = re.search(r"inline int variant_for\(int hd, int dtype, bool backward\) \{(.*?)\n\}",
+                     header, re.S).group(1)
+    assert "if (!one_of(kHeadDims, hd)) return -1;" in body
+    assert "if (dtype == 0) return kScalar;" in body
+    assert ("backward ? one_of(kSm90BwdHeadDims, hd) : one_of(kSm90HeadDims, hd)" in body
+            and "return wgmma ? kSm90Wgmma : kMmaSync;" in body)
+    head_dims = _c_int_list("flash_attention.cuh", "kHeadDims")
+    wgmma = {False: set(_c_int_list("flash_attention.cuh", "kSm90HeadDims")),
+             True: set(_c_int_list("flash_attention.cuh", "kSm90BwdHeadDims"))}
+    assert tuple(head_dims) == flash_mod.HEAD_DIMS
+
+    def rule(hd, dtype, backward):   # the C rule, as parsed above
+        if hd not in head_dims:
+            return -1
+        if dtype == 0:
+            return enum["kScalar"]
+        return enum["kSm90Wgmma"] if hd in wgmma[backward] else enum["kMmaSync"]
+
+    for dtype in (1, 2):   # bfloat16, float16
+        assert flash_mod.VARIANTS[rule(256, dtype, False)] == "sm90_wgmma"
+        assert flash_mod.VARIANTS[rule(256, dtype, True)] == "mma_sync"
+        assert flash_mod.VARIANTS[rule(128, dtype, True)] == "sm90_wgmma"
+    assert flash_mod.VARIANTS[rule(256, 0, False)] == "scalar"
+    # the C entries ask for the forward's and the backward's rule
+    assert "flash::variant_for(hd, dtype, false)" in (CSRC / "flash_attention.cu").read_text()
+    assert "flash::variant_for(c->hd, c->dtype, true)" in \
+        (CSRC / "flash_attention_bwd.cu").read_text()
+    compiled = {
+        (False, "sm90_wgmma"): _compiled_head_dims(
+            "flash_attention_sm90.cu", "int launch_sm90",
+            r"if \(hd == (\d+)\) return launch<__nv_bfloat16, \1>"),
+        (False, "mma_sync"): _compiled_head_dims(
+            "flash_attention.cu", "int dispatch_mma",
+            r"case (\d+): return \(int\)launch_mma<T, \1,"),
+        (True, "sm90_wgmma"): _compiled_head_dims(
+            "flash_attention_bwd_sm90.cu", "int launch_bwd_sm90",
+            r"if \(hd == (\d+)\) return launch<__nv_bfloat16, \1>"),
+        (True, "mma_sync"): _compiled_head_dims(
+            "flash_attention_bwd.cu", "int dispatch_mma",
+            r"case (\d+): return launch_mma<T, \1,"),
+    }
+    for backward in (False, True):
+        for kind in ("sm90_wgmma", "mma_sync"):
+            routed = {hd for hd in head_dims
+                      if flash_mod.VARIANTS[rule(hd, 1, backward)] == kind}
+            assert routed == compiled[(backward, kind)], (backward, kind)

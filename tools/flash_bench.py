@@ -11,7 +11,8 @@ launches after a warm-up), TFLOP/s over the (query, key) pairs the mask leaves
 visible (4 * hd operations each forward, 10 * hd backward), the share of the 989
 TFLOP/s bound, and ``F.scaled_dot_product_attention`` (its backward, through
 autograd, with --backward) on the same tensors as a yardstick (the port never calls
-it).  The backward's shapes hold 8192 tokens a call: S in 1024..8192, causal and
+it).  The forward's shapes include gemma-7b's head_dim 256.  The backward's shapes
+hold 8192 tokens a call: S in 1024..8192, causal and
 not, head_dim 128 (28 query heads on 4 K/V heads) and 64 (56 on 8).  Prints the
 card's name and power limit, then one JSON line per shape.  Needs a CUDA device.
 """
@@ -35,6 +36,8 @@ SHAPES = [
     (4, 2048, 28, 28, 128, True),    # one K/V head per query head: 7x the K/V bytes
     (4, 2048, 28, 1, 128, True),     # one K/V head for all
     (4, 2048, 56, 8, 64, True),      # head_dim 64, same model width
+    (4, 2048, 16, 16, 256, True),    # gemma-7b prefill: head_dim 256
+    (4, 2048, 16, 16, 256, False),   # the same, bidirectional
 ]
 # the backward's: (B, S, H, KV, hd, causal), 8192 tokens a call
 BWD_SHAPES = [(8192 // S, S, H, KV, hd, causal)
