@@ -5,15 +5,17 @@ stacked prefill cache into the flat per-layer layout, right-size it, decode
 token by token.  Runs on the GPU (the attention and RMSNorm kernels are built
 at first use); pass --device cpu to run the plain versions instead.
 
-Every ported --arch runs: the dense ones (qwen2_7b, gemma_7b, qwen3_32b,
-granite_34b), the mixture-of-experts ones (qwen3_moe_30b_a3b, dbrx_132b) and
-the cross-attention ones (llama_3p2_vision_11b, whisper_medium), whose
-vision patches / audio frames are random embeddings at 0.02 scale from a
-seeded generator (the frontends are stubs, as in the reference).
+Every --arch runs: the dense ones (qwen2_7b, gemma_7b, qwen3_32b, granite_34b),
+the mixture-of-experts ones (qwen3_moe_30b_a3b, dbrx_132b), the cross-attention
+ones (llama_3p2_vision_11b, whisper_medium), whose vision patches / audio
+frames are random embeddings at 0.02 scale from a seeded generator (the
+frontends are stubs, as in the reference), and the recurrent ones (zamba2_2p7b:
+Mamba2 with a shared attention block; xlstm_125m: mLSTM and sLSTM).
 
 PYTHONPATH=src python examples/serve_torch.py                    # reduced gemma-7b
 PYTHONPATH=src python examples/serve_torch.py --arch qwen2_7b --full --seq 2048
 PYTHONPATH=src python examples/serve_torch.py --arch whisper_medium --full --seq 448
+PYTHONPATH=src python examples/serve_torch.py --arch zamba2_2p7b --full --seq 2048
 PYTHONPATH=src python examples/serve_torch.py --arch llama_3p2_vision_11b --device cpu
 """
 
@@ -64,10 +66,7 @@ print(f"prefill  B={B} S={S}: {time.perf_counter() - t0:.3f}s "
       f"logits {tuple(logits.shape)}")
 
 # convert to the flat per-layer serving layout and right-size to MAXLEN
-cache = model.init_cache(B, MAXLEN, device=dev)
-for dst, src in zip(cache, model.unstack_cache(stacked)):
-    for name in dst:
-        dst[name][:, :S] = src[name]
+cache = model.serving_cache(stacked, S, MAXLEN)
 del stacked
 
 tok = logits.argmax(-1, keepdim=True)

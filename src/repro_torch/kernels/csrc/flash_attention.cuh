@@ -71,10 +71,13 @@ __host__ __device__ inline int sq_pad(int sq) { return (sq + kSqPad - 1) / kSqPa
 // repro_flash_attention_bwd_variant report them.
 enum Variant { kScalar = 0, kMmaSync = 1, kSm90Wgmma = 2 };
 
-// The head_dims compiled in, and the 16-bit ones the TMA + wgmma kernels take:
-// the forward at 64, 128 and 256, the backward at 64 and 128 (at 256 it keeps the
-// mma.sync kernels).
-constexpr int kHeadDims[] = {16, 32, 64, 128, 256};
+// The head_dims compiled in, forward and backward, and the 16-bit ones the TMA +
+// wgmma kernels take: the forward at 64, 128 and 256, the backward at 64 and 128 (at
+// 256 it keeps the mma.sync kernels).  Head_dim 80 (zamba2's shared attention) has
+// the forward alone, on the mma.sync and scalar kernels: an 80-element 16-bit row is
+// 160 bytes, wider than one 128-byte swizzle atom of the wgmma kernels' tiles.
+constexpr int kHeadDims[] = {16, 32, 64, 80, 128, 256};
+constexpr int kBwdHeadDims[] = {16, 32, 64, 128, 256};
 constexpr int kSm90HeadDims[] = {64, 128, 256};
 constexpr int kSm90BwdHeadDims[] = {64, 128};
 
@@ -86,10 +89,11 @@ inline bool one_of(const int (&set)[N], int hd) {
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The split by shape: 16-bit
-// inputs at the head_dims above take the TMA + wgmma kernel; the other 16-bit
-// head_dims the mma.sync kernel; float32 the scalar one.  -1: not compiled in.
+// inputs at the wgmma head_dims above take the TMA + wgmma kernel; the other 16-bit
+// head_dims the mma.sync kernel; float32 the scalar one.  -1: not compiled in (so
+// for the backward at head_dim 80).
 inline int variant_for(int hd, int dtype, bool backward) {
-  if (!one_of(kHeadDims, hd)) return -1;
+  if (!(backward ? one_of(kBwdHeadDims, hd) : one_of(kHeadDims, hd))) return -1;
   if (dtype == 0) return kScalar;
   if (dtype != 1 && dtype != 2) return -1;
   const bool wgmma = backward ? one_of(kSm90BwdHeadDims, hd) : one_of(kSm90HeadDims, hd);

@@ -2,9 +2,10 @@
 
 The reference keeps its parameters as nested dicts: ``embed.tok``,
 ``final_norm`` and one ``pos{p}`` per pattern position whose leaves
-(``attn.*``, ``ffn.*``, ``moe.*``, ``cross.*``) carry a leading ``n_cycles``
-dim; whisper adds ``encoder.*`` (leading ``encoder_layers`` dim) and
-``enc_norm``.  Layer ``i = c * cycle_len + p`` of
+(``attn.*``, ``ffn.*``, ``moe.*``, ``cross.*``, ``mamba.*``, ``mlstm.*``,
+``slstm.*``, zamba2's ``in_proj``) carry a leading ``n_cycles`` dim; zamba2 adds
+``shared.*`` (held once, not stacked), whisper ``encoder.*`` (leading
+``encoder_layers`` dim) and ``enc_norm``.  Layer ``i = c * cycle_len + p`` of
 :class:`repro_torch.models.lm.LM` is slice ``c`` of ``pos{p}``, encoder layer
 ``j`` slice ``j`` of ``encoder``.  Arrays cross as numpy; shapes are identical
 on both sides (``wq (d,H,hd)``, ``router (d,E)``, ``w_gate (E,d,f)``, ``gate
@@ -48,10 +49,11 @@ def _target_names(model: LM) -> dict[str, list[str]]:
     if cfg.encoder_layers:
         stacks.append(("encoder", [f"encoder.{j}" for j in range(cfg.encoder_layers)]))
     for root, layers in stacks:
-        first = model.get_submodule(layers[0])
-        for group, params in first.named_children():
-            for name in params.keys():
-                out[f"{root}.{group}.{name}"] = [f"{lyr}.{group}.{name}" for lyr in layers]
+        for name, _ in model.get_submodule(layers[0]).named_parameters():
+            out[f"{root}.{name}"] = [f"{lyr}.{name}" for lyr in layers]
+    if "shared_attn" in cfg.pattern:
+        out.update({f"shared.{name}": [f"shared.{name}"]
+                    for name, _ in model.shared.named_parameters()})
     if cfg.encoder_layers:
         out["enc_norm"] = ["enc_norm"]
     return out

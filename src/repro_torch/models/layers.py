@@ -1,8 +1,9 @@
 """Layer primitives of the LM (plain functions on tensors).
 
-Counterpart of ``repro.models.layers`` for the attention family: self-attention
-(``"attn"`` blocks and the encoder), the dense FFN, the mixture-of-experts FFN
-and cross-attention to a memory (``"cross_attn"`` blocks).  Parameters are
+Counterpart of ``repro.models.layers``: self-attention (``"attn"`` blocks, the
+encoder, zamba2's shared block), the dense FFN, the mixture-of-experts FFN,
+cross-attention to a memory (``"cross_attn"`` blocks) and the recurrent blocks
+(Mamba2, mLSTM, sLSTM).  Parameters are
 declared as :class:`ParamDef` trees with the reference's names, shapes and init
 rule; :func:`materialize` turns a def-tree into ``nn.Parameter``s on an
 explicit device.  The reference's ``shard(...)`` annotations have no
@@ -16,8 +17,9 @@ path, whose mask differs per batch row) is plain tensor code on either device:
 that is a routing decision, not a fallback.  Cross-attention calls :func:`mha`
 without positions, so it runs on the kernel at prefill and decode alike.  The
 MoE dispatch (routing, sort, capacity, gather, scatter-add) and the expert
-products are plain tensor code and cuBLAS: none of it is a Pallas kernel in the
-reference either.
+products are plain tensor code and cuBLAS, and so are the recurrences (the
+chunkwise SSD and mLSTM forms, and the sequential steps as Python loops over
+time): none of it is a Pallas kernel in the reference either.
 """
 
 from __future__ import annotations
@@ -423,6 +425,363 @@ def moe_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
     out = x.new_zeros((G * tg, d)).index_add(
         0, (rows * tg + stok).reshape(-1), contrib.reshape(-1, d))
     return x + out.reshape(B, S, d)
+
+
+# ---------------------------------------------------------------------------
+# Chunked time scan (recurrent blocks)
+#
+# Differentiating an S-step loop keeps every step's inputs for the backward.
+# Running chunks of ``chunk`` steps, each recomputed in the backward
+# (``torch.utils.checkpoint``), keeps only the carries at chunk edges, as the
+# reference remats each chunk of its ``lax.scan``.
+# ---------------------------------------------------------------------------
+
+TIME_SCAN_CHUNK = 256
+
+
+def _scan(step, carry, xs: tuple, lo: int, hi: int):
+    """Steps ``lo..hi-1`` of ``step(carry, inputs) -> (carry, y)``: the final
+    carry and the ys stacked on a leading time dim."""
+    ys = []
+    for t in range(lo, hi):
+        carry, y = step(carry, tuple(x[t] for x in xs))
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+def chunked_time_scan(step, carry, xs: tuple):
+    """``lax.scan(step, carry, xs)`` as a Python loop over time; ``xs`` is a
+    tuple of time-major tensors.  With gradients on, S > chunk and S a multiple
+    of it (chunk = :data:`TIME_SCAN_CHUNK`, read at call time), each chunk is
+    recomputed in the backward (non-reentrant ``torch.utils.checkpoint``);
+    otherwise it is one plain loop."""
+    chunk = TIME_SCAN_CHUNK
+    S = xs[0].shape[0]
+    if S <= chunk or S % chunk or not torch.is_grad_enabled():
+        return _scan(step, carry, xs, 0, S)
+    ys = []
+    for lo in range(0, S, chunk):
+        carry, y = checkpoint(_scan, step, carry, xs, lo, lo + chunk,
+                              use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) with no threshold (``F.softplus``
+    returns x itself above 20, which float64 can tell apart)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (SSD recurrence)
+# ---------------------------------------------------------------------------
+
+
+def mamba_defs(cfg) -> dict:
+    d = cfg.d_model
+    e = cfg.ssm_expand * d
+    nh = e // cfg.ssm_head_dim
+    N, W = cfg.ssm_state, cfg.ssm_conv_width
+    return {"ln": ParamDef((d,), init="ones"),
+            "w_z": ParamDef((d, e)),
+            "w_x": ParamDef((d, e)),
+            "w_B": ParamDef((d, N)),
+            "w_C": ParamDef((d, N)),
+            "w_dt": ParamDef((d, nh)),
+            "conv_w": ParamDef((W, e), scale=0.5),
+            "A_log": ParamDef((nh,), init="zeros"),
+            "D": ParamDef((nh,), init="ones"),
+            "dt_bias": ParamDef((nh,), init="zeros"),
+            "gn": ParamDef((e,), init="ones"),
+            "w_out": ParamDef((e, d))}
+
+
+def _mamba_scan_seq(x, B_in, C_in, dt, A_log, D, hd, *, h0=None):
+    """Sequential SSD recurrence (the decode path, and prefill at lengths the
+    chunkwise form does not take):
+
+    h_t = exp(A dt_t) h_{t-1} + dt_t x_t B_t^T ;  y_t = h_t C_t + D x_t
+
+    x (B,S,nh,hd), B_in/C_in (B,S,N), dt (B,S,nh).  The state is fp32; each
+    y_t is cast to x's dtype.  Returns (y (B,S,nh,hd), h_final (B,nh,hd,N)).
+    """
+    Bb, S, nh, _ = x.shape
+    N = B_in.shape[-1]
+    A = -torch.exp(A_log.float())                          # (nh,) negative
+
+    def step(h, inp):
+        xt, Bt, Ct, dtt = inp                # (B,nh,hd), (B,N), (B,N), (B,nh)
+        decay = torch.exp(A[None] * dtt)                   # (B,nh)
+        dx = (dtt[..., None] * xt).float()                 # (B,nh,hd)
+        h = h * decay[..., None, None] + dx[..., None] * Bt[:, None, None, :]
+        y = torch.einsum("bhdn,bn->bhd", h, Ct.float())
+        return h, y.to(x.dtype)
+
+    if h0 is None:
+        h0 = torch.zeros((Bb, nh, hd, N), dtype=torch.float32, device=x.device)
+    xs = tuple(t.movedim(1, 0) for t in (x, B_in, C_in, dt))
+    h_fin, ys = chunked_time_scan(step, h0, xs)
+    return ys.movedim(0, 1) + D[None, None, :, None] * x, h_fin
+
+
+MAMBA_CHUNK = 128
+
+
+def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
+                chunk: int = MAMBA_CHUNK):
+    """Chunkwise-parallel SSD (the Mamba2 paper's algorithm), the reference's
+    ``_mamba_scan``; sequential when ``S % chunk`` or ``S <= chunk``:
+
+      y_intra[t] = sum_{s<=t} exp(logP_t - logP_s) (C_t.B_s) u_s
+      y_cross[t] = exp(logP_t) C_t . h_in
+      h_out      = exp(logP_c) h_in + sum_t exp(logP_c - logP_t) u_t (x) B_t
+
+    Every decay ratio is the exp of a non-positive number.  Only the chunk
+    boundary states run in order (one small update a chunk); the products of
+    all chunks with their incoming states are then taken at once.
+    """
+    Bb, S, nh, _ = x.shape
+    if S % chunk or S <= chunk:
+        return _mamba_scan_seq(x, B_in, C_in, dt, A_log, D, hd, h0=h0)
+    N = B_in.shape[-1]
+    A = -torch.exp(A_log.float())                          # (nh,)
+    n = S // chunk
+
+    def reshape_c(t):
+        return t.reshape(Bb, n, chunk, *t.shape[2:])
+
+    xc = reshape_c(x)
+    Bc = reshape_c(B_in).float()
+    Cc = reshape_c(C_in).float()
+    dtc = reshape_c(dt).float()
+    u = dtc[..., None] * xc.float()                        # (B,n,c,nh,hd)
+    logP = torch.cumsum(A * dtc, dim=2)                    # (B,n,c,nh), <= 0
+    logPc = logP[:, :, -1]                                 # (B,n,nh)
+
+    # intra-chunk: (C_t.B_s) * exp(logP_t - logP_s), masked s <= t
+    cb = torch.einsum("bntk,bnsk->bnts", Cc, Bc)           # (B,n,c,c)
+    ratio = logP[:, :, :, None, :] - logP[:, :, None, :, :]   # (B,n,t,s,nh)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    ratio = torch.where(mask[None, None, :, :, None], ratio,
+                        torch.full((), NEG_INF, dtype=ratio.dtype, device=x.device))
+    y_intra = torch.einsum("bntsh,bnshd->bnthd", cb[..., None] * torch.exp(ratio), u)
+    del ratio
+
+    # chunk-boundary states, in order over the n chunks
+    contrib = torch.einsum("bnthd,bntk->bnhdk",
+                           torch.exp(logPc[:, :, None] - logP)[..., None] * u, Bc)
+    h = h0 if h0 is not None else torch.zeros((Bb, nh, hd, N), dtype=torch.float32,
+                                              device=x.device)
+    decay = torch.exp(logPc)                               # (B,n,nh)
+    h_in = []
+    for i in range(n):
+        h_in.append(h)
+        h = h * decay[:, i, :, None, None] + contrib[:, i]
+    y_cross = torch.einsum("bntk,bnhdk->bnthd", Cc, torch.stack(h_in, dim=1)) \
+        * torch.exp(logP)[..., None]
+    y = (y_intra + y_cross).reshape(Bb, S, nh, hd).to(x.dtype)
+    return y + D[None, None, :, None] * x, h
+
+
+def mamba_block(p, cfg, x: torch.Tensor, *, state=None, conv_state=None):
+    """Mamba2 residual block: prefill over the whole sequence (chunkwise SSD),
+    or, with ``state`` (B,nh,hd,N) fp32 and ``conv_state`` (B,W-1,e), one decode
+    step.  Returns (out, final SSM state, the last W-1 conv inputs)."""
+    Bb, S, d = x.shape
+    e = cfg.ssm_expand * d
+    hd = cfg.ssm_head_dim
+    nh = e // hd
+    W = cfg.ssm_conv_width
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    z = h @ p["w_z"]
+    xin = h @ p["w_x"]
+    # causal depthwise conv
+    if conv_state is not None:                             # decode: (B, W-1, e)
+        window = torch.cat([conv_state, xin], dim=1)       # (B, W, e)
+        new_conv = window[:, 1:]
+        xc = torch.einsum("bwe,we->be", window, p["conv_w"])[:, None]
+    else:
+        win = torch.cat([xin.new_zeros((Bb, W - 1, e)), xin], dim=1)
+        xc = sum(win[:, i:i + S] * p["conv_w"][i] for i in range(W))
+        new_conv = win[:, S:]                              # the last W-1 inputs
+    xc = F.silu(xc)
+    B_in = h @ p["w_B"]
+    C_in = h @ p["w_C"]
+    dt = _softplus(h @ p["w_dt"] + p["dt_bias"])
+    y, h_fin = _mamba_scan(xc.reshape(Bb, -1, nh, hd), B_in, C_in, dt,
+                           p["A_log"], p["D"], hd, h0=state)
+    y = y.reshape(Bb, -1, e) * F.silu(z)
+    y = rms_norm(y, p["gn"], cfg.norm_eps)
+    return x + y @ p["w_out"], h_fin, new_conv
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+
+def mlstm_defs(cfg) -> dict:
+    d = cfg.d_model
+    e = 2 * d
+    H = cfg.n_heads
+    return {"ln": ParamDef((d,), init="ones"),
+            "w_up": ParamDef((d, e)),                      # pre up-projection
+            "wq": ParamDef((e, e)),
+            "wk": ParamDef((e, e)),
+            "wv": ParamDef((e, e)),
+            "w_i": ParamDef((e, H)),
+            "w_f": ParamDef((e, H)),
+            "w_o": ParamDef((e, e)),
+            "w_down": ParamDef((e, d))}
+
+
+def _mlstm_chunkwise(q, k, v, it, ft, state, *, chunk: int):
+    """Chunkwise-parallel mLSTM (stabilised linear attention), the reference's
+    ``_mlstm_chunkwise``.  With F_t = cumsum(log f) the stabiliser is
+    m_t = F_t + max(M_in, cummax_s(i_s - F_s)), so the intra-chunk part is a
+    masked product A_ts = (q_t.k_s) e^{F_t-F_s+i_s-m_t} (every exponent <= 0)
+    and the carried state adds e^{F_t + M_in - m_t} (C_in q_t).
+
+    q, k, v: (B,S,H,hd) (k scaled by 1/sqrt(hd)); it, ft: (B,S,H) fp32 raw
+    gates; state = (C, n, m).  Returns (y (B,S,H,hd) fp32, new state).
+    """
+    Bb, S, H, hd = q.shape
+    n = S // chunk
+    qc = q.reshape(Bb, n, chunk, H, hd).float()
+    kc = k.reshape(Bb, n, chunk, H, hd).float()
+    vc = v.reshape(Bb, n, chunk, H, hd).float()
+    ic = it.reshape(Bb, n, chunk, H)
+    F_ = torch.cumsum(-_softplus(-ft).reshape(Bb, n, chunk, H), dim=2)
+    Gmax = torch.cummax(ic - F_, dim=2).values             # cummax(i_s - F_s)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    fill = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    C, nv, M = state                          # (B,H,hd,hd), (B,H,hd), (B,H)
+    ys = []
+    for c in range(n):
+        qt, kt, vt = qc[:, c], kc[:, c], vc[:, c]
+        i_t, F_t, Gm = ic[:, c], F_[:, c], Gmax[:, c]
+        m = F_t + torch.maximum(M[:, None], Gm)            # (B,c,H)
+        ratio = F_t[:, :, None] - F_t[:, None, :] + i_t[:, None, :] - m[:, :, None]
+        ratio = torch.where(tri[None, :, :, None], ratio, fill)   # (B,t,s,H)
+        A = torch.einsum("bthd,bshd->bhts", qt, kt) * torch.exp(ratio).movedim(3, 1)
+        num_intra = torch.einsum("bhts,bshd->bthd", A, vt)
+        den_intra = A.sum(dim=3).movedim(1, 2)             # (B,t,H)
+        w_in = torch.exp(F_t + M[:, None] - m)             # (B,c,H)
+        num_cross = torch.einsum("bhkv,bthk->bthv", C, qt) * w_in[..., None]
+        den_cross = torch.einsum("bhk,bthk->bth", nv, qt) * w_in
+        den = torch.abs(den_intra + den_cross)
+        ys.append((num_intra + num_cross) / torch.clamp(den, min=1.0)[..., None])
+        m_out = m[:, -1]                                   # (B,H)
+        Fc = F_t[:, -1]
+        wS = torch.exp(Fc + M - m_out)
+        wk = torch.exp(Fc[:, None] - F_t + i_t - m_out[:, None])   # (B,c,H)
+        C = C * wS[..., None, None] + torch.einsum("bshk,bshv->bhkv",
+                                                   kt * wk[..., None], vt)
+        nv = nv * wS[..., None] + torch.einsum("bshk,bsh->bhk", kt, wk)
+        M = m_out
+    return torch.stack(ys, dim=1).reshape(Bb, S, H, hd), (C, nv, M)
+
+
+MLSTM_CHUNK = 64
+
+
+def mlstm_block(p, cfg, x: torch.Tensor, *, state=None):
+    """mLSTM: matrix-memory recurrent block (xLSTM).  Chunkwise when
+    ``S % MLSTM_CHUNK == 0 and S > MLSTM_CHUNK``, the sequential step otherwise
+    (decode always).  ``state`` = (C (B,H,hd,hd), n (B,H,hd), m (B,H)), fp32.
+    Returns (out, new state)."""
+    Bb, S, d = x.shape
+    H = cfg.n_heads
+    e = p["w_up"].shape[1]
+    hd = e // H
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    u = F.silu(h @ p["w_up"])
+    q = (u @ p["wq"]).reshape(Bb, S, H, hd)
+    k = (u @ p["wk"]).reshape(Bb, S, H, hd) / math.sqrt(hd)
+    v = (u @ p["wv"]).reshape(Bb, S, H, hd)
+    it = (u @ p["w_i"]).float()
+    ft = (u @ p["w_f"]).float()
+
+    def step(carry, inp):
+        C, n, m = carry                       # (B,H,hd,hd), (B,H,hd), (B,H)
+        qt, kt, vt, i_t, f_t = inp
+        logf = -_softplus(-f_t)                            # log sigmoid(f)
+        m_new = torch.maximum(logf + m, i_t)
+        fg = torch.exp(logf + m - m_new)[..., None]
+        ig = torch.exp(i_t - m_new)[..., None]
+        C = C * fg[..., None] + ig[..., None] * \
+            (kt[..., :, None] * vt[..., None, :]).float()
+        n = n * fg + ig * kt.float()
+        num = torch.einsum("bhkv,bhk->bhv", C, qt.float())
+        den = torch.abs(torch.einsum("bhk,bhk->bh", n, qt.float()))
+        y = num / torch.clamp(den, min=1.0)[..., None]
+        return (C, n, m_new), y.to(x.dtype)
+
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = (torch.zeros((Bb, H, hd, hd), **f32), torch.zeros((Bb, H, hd), **f32),
+                 torch.full((Bb, H), NEG_INF, **f32))
+    if S % MLSTM_CHUNK == 0 and S > MLSTM_CHUNK:
+        ys, state = _mlstm_chunkwise(q, k, v, it, ft, state, chunk=MLSTM_CHUNK)
+        y = ys.to(x.dtype).reshape(Bb, S, e)
+    else:
+        xs = tuple(t.movedim(1, 0) for t in (q, k, v, it, ft))
+        state, ys = chunked_time_scan(step, state, xs)
+        y = ys.movedim(0, 1).reshape(Bb, S, e)
+    y = y * F.silu(u @ p["w_o"])
+    return x + y @ p["w_down"], state
+
+
+def slstm_defs(cfg) -> dict:
+    d = cfg.d_model
+    H = cfg.n_heads
+    hd = d // H
+    f = int(4 * d / 3 / 64) * 64 or 64
+    return {"ln": ParamDef((d,), init="ones"),
+            "w_zifo": ParamDef((d, 4 * d)),
+            "r_zifo": ParamDef((H, hd, 4 * hd), scale=0.1),
+            "gn": ParamDef((d,), init="ones"),
+            "w_up": ParamDef((d, 2 * f)),
+            "w_down": ParamDef((f, d))}
+
+
+def slstm_block(p, cfg, x: torch.Tensor, *, state=None):
+    """sLSTM: scalar-memory recurrent block with a block-diagonal recurrence and
+    exponential gating, then a gated up/down MLP (xLSTM).  Always sequential.
+    ``state`` = (c, n (B,H,hd) fp32, h (B,H,hd) in x's dtype, m (B,H) fp32).
+    Returns (out, new state)."""
+    Bb, S, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    zifo = h @ p["w_zifo"]                                 # (B,S,4d)
+
+    def step(carry, inp):
+        c, n, hprev, m = carry
+        (g_in,) = inp
+        g = g_in.reshape(Bb, H, 4 * hd) + torch.einsum("bhk,hkf->bhf", hprev,
+                                                       p["r_zifo"])
+        zt, it, ft, ot = torch.chunk(g.float(), 4, dim=-1)
+        it, ft = it.mean(-1), ft.mean(-1)                  # scalar gates per head
+        logf = -_softplus(-ft)
+        m_new = torch.maximum(logf + m, it)
+        fg = torch.exp(logf + m - m_new)[..., None]
+        ig = torch.exp(it - m_new)[..., None]
+        c = c * fg + ig * torch.tanh(zt)
+        n = n * fg + ig
+        hn = (torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)).to(x.dtype)
+        return (c, n, hn, m_new), hn
+
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = (torch.zeros((Bb, H, hd), **f32), torch.zeros((Bb, H, hd), **f32),
+                 torch.zeros((Bb, H, hd), dtype=x.dtype, device=x.device),
+                 torch.full((Bb, H), NEG_INF, **f32))
+    state, ys = chunked_time_scan(step, state, (zifo.movedim(1, 0),))
+    y = rms_norm(ys.movedim(0, 1).reshape(Bb, S, d), p["gn"], cfg.norm_eps)
+    up, gate = torch.chunk(y @ p["w_up"], 2, dim=-1)
+    return x + (up * F.gelu(gate, approximate="tanh")) @ p["w_down"], state
 
 
 # ---------------------------------------------------------------------------

@@ -1,25 +1,25 @@
-"""Composable LM: the attention family of block kinds, training and serving.
+"""Composable LM covering the ten architectures: training and serving.
 
 One :class:`LM` consumes an :class:`repro_torch.models.config.ArchConfig` and
 provides ``init / encode / forward / loss / prefill / init_cache /
-unstack_cache / decode_step``.  It is an ``nn.Module`` holding an
+unstack_cache / serving_cache / decode_step``.  It is an ``nn.Module`` holding an
 ``nn.ModuleList`` of blocks; block ``i`` is cycle ``c`` and pattern position
 ``p`` of the reference's stacked layout, ``i = c * cycle_len + p``.  The layer
 functions live in :mod:`repro_torch.models.layers`.
 
-Block kinds ported: ``"attn"`` (self-attention + FFN, or + MoE when
-``cfg.n_experts``) and ``"cross_attn"`` (self-attention + cross-attention to a
-memory + FFN: llama-3.2-vision's image layers, whisper's decoder), with
-whisper's encoder.  The memory is the encoded ``audio_embed`` (whisper) or the
-``vision_embed`` as given (llama-vision); a model without cross-attention
-ignores both.
+Block kinds (``cfg.block_pattern``): ``"attn"`` (self-attention + FFN, or +
+MoE when ``cfg.n_experts``); ``"cross_attn"`` (self-attention + cross-attention
+to a memory + FFN: llama-3.2-vision's image layers, whisper's decoder), with
+whisper's encoder; ``"mamba"`` (Mamba2); ``"mlstm"`` / ``"slstm"`` (xLSTM);
+``"shared_attn"`` (zamba2: one attention + FFN weight set, ``LM.shared``, reused
+at every occurrence behind a per-occurrence ``in_proj``, causal over a sliding
+window whose decode cache is a ring buffer).  The memory is the encoded
+``audio_embed`` (whisper) or the ``vision_embed`` as given (llama-vision); a
+model without cross-attention ignores both.
 
 ``forward`` and ``loss`` run with gradients: the RMSNorm and attention kernels
 sit on the path through their ``autograd.Function``s (kernels/), and ``remat``
 recomputes each block in the backward through ``torch.utils.checkpoint``.
-
-Still to be ported, and refused with ``NotImplementedError`` until then: the
-recurrent block kinds (mamba, mlstm, slstm) and zamba2's shared attention.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ from repro_torch.models.config import ArchConfig
 class Block(nn.Module):
     """Parameters of one layer: a ``ParameterDict`` per group of its block
     definition (``attn`` and ``ffn`` or ``moe``; ``cross`` too for
-    ``"cross_attn"``)."""
+    ``"cross_attn"``; ``mamba``, ``mlstm`` or ``slstm``), or the parameter
+    itself for a bare one (``"shared_attn"``'s ``in_proj``)."""
 
     def __init__(self, defs: dict, dtype: torch.dtype, device):
         super().__init__()
@@ -47,15 +48,13 @@ class Block(nn.Module):
             setattr(self, group, L.materialize(group_defs, dtype, device))
 
 
-UNPORTED_KINDS = ("mamba", "mlstm", "slstm", "shared_attn")
-
-
-def _refuse_unported(cfg: ArchConfig) -> None:
-    other = sorted({k for k in cfg.pattern if k in UNPORTED_KINDS})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {other} are not ported yet (the slice that "
-            "ports the recurrent kinds and shared attention)")
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of dicts / tuples of one structure (a cache)."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(_tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
 
 
 #: matrix products without batch dims: what ``remat="selective"`` keeps, as the
@@ -78,7 +77,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  dtype: torch.dtype | None = None):
         super().__init__()
-        _refuse_unported(cfg)
         self.cfg = cfg
         dtype = dtype or cfg.torch_dtype
         self.embed = L.materialize(L.embed_defs(cfg), dtype, device)
@@ -87,9 +85,11 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(self.block_defs(cfg.block_kind(i)), dtype, device)
             for i in range(cfg.n_layers))
+        if "shared_attn" in cfg.pattern:
+            self.shared = Block(self.attn_ffn_defs(), dtype, device)
         if cfg.encoder_layers:
             self.encoder = nn.ModuleList(
-                Block(self.encoder_defs(), dtype, device)
+                Block(self.attn_ffn_defs(), dtype, device)
                 for _ in range(cfg.encoder_layers))
             self.enc_norm = L.materialize(
                 L.ParamDef((cfg.d_model,), init="ones"), dtype, device)
@@ -107,15 +107,24 @@ class LM(nn.Module):
         if kind == "cross_attn":
             return {"attn": L.attn_defs(cfg), "cross": L.cross_attn_defs(cfg),
                     "ffn": L.ffn_defs(cfg)}
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+        if kind == "mamba":
+            return {"mamba": L.mamba_defs(cfg)}
+        if kind == "mlstm":
+            return {"mlstm": L.mlstm_defs(cfg)}
+        if kind == "slstm":
+            return {"slstm": L.slstm_defs(cfg)}
+        if kind == "shared_attn":
+            return {"in_proj": L.ParamDef((cfg.d_model, cfg.d_model), scale=0.02)}
+        raise ValueError(f"unknown block kind {kind!r}")
 
-    def encoder_defs(self) -> dict:
-        """One encoder layer (whisper): non-causal self-attention + FFN."""
+    def attn_ffn_defs(self) -> dict:
+        """Self-attention + FFN: one encoder layer (whisper), and zamba2's shared
+        block (held once)."""
         return {"attn": L.attn_defs(self.cfg), "ffn": L.ffn_defs(self.cfg)}
 
     def param_defs(self) -> dict:
-        """The reference's parameter tree: ``pos{p}`` stacked over cycles, and
-        ``encoder`` stacked over its layers."""
+        """The reference's parameter tree: ``pos{p}`` stacked over cycles,
+        ``shared`` once, and ``encoder`` stacked over its layers."""
         cfg = self.cfg
         defs: dict = {
             "embed": L.embed_defs(cfg),
@@ -124,8 +133,10 @@ class LM(nn.Module):
         for p, kind in enumerate(cfg.pattern):
             defs[f"pos{p}"] = L.stack_defs(self.block_defs(kind),
                                            cfg.n_cycles)
+        if "shared_attn" in cfg.pattern:
+            defs["shared"] = self.attn_ffn_defs()
         if cfg.encoder_layers:
-            defs["encoder"] = L.stack_defs(self.encoder_defs(),
+            defs["encoder"] = L.stack_defs(self.attn_ffn_defs(),
                                            cfg.encoder_layers)
             defs["enc_norm"] = L.ParamDef((cfg.d_model,), init="ones")
         return defs
@@ -138,8 +149,10 @@ class LM(nn.Module):
         L.init_params(self.embed, L.embed_defs(cfg), generator)
         layers = [(blk, self.block_defs(cfg.block_kind(i)))
                   for i, blk in enumerate(self.blocks)]
+        if "shared_attn" in cfg.pattern:
+            layers.append((self.shared, self.attn_ffn_defs()))
         if cfg.encoder_layers:
-            layers += [(lyr, self.encoder_defs()) for lyr in self.encoder]
+            layers += [(lyr, self.attn_ffn_defs()) for lyr in self.encoder]
         with torch.no_grad():
             self.final_norm.fill_(1.0)
             if cfg.encoder_layers:
@@ -192,10 +205,29 @@ class LM(nn.Module):
     # Forward (prefill)
     # ------------------------------------------------------------------
 
-    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor,
-               memory: torch.Tensor | None):
-        """One ``"attn"`` or ``"cross_attn"`` layer: (new x, its k, its v)."""
+    def _block(self, kind: str, blk: Block, x: torch.Tensor,
+               positions: torch.Tensor, memory: torch.Tensor | None):
+        """One layer over the whole sequence: (new x, its cache entry).  The
+        entry is the layer's k and v (for ``"shared_attn"`` before the ring
+        layout), the Mamba2 ``ssm`` state and ``conv`` inputs, or an xLSTM
+        ``state`` tuple."""
         cfg = self.cfg
+        if kind == "mamba":
+            x, ssm, conv = L.mamba_block(blk.mamba, cfg, x)
+            return x, {"ssm": ssm, "conv": conv}
+        if kind in ("mlstm", "slstm"):
+            block = L.mlstm_block if kind == "mlstm" else L.slstm_block
+            x, state = block(getattr(blk, kind), cfg, x)
+            return x, {"state": state}
+        if kind == "shared_attn":
+            h = x @ blk.in_proj
+            attn = self.shared.attn
+            q, k, v = L._qkv(attn, cfg, L.rms_norm(h, attn["ln"], cfg.norm_eps), positions)
+            # implicit positions and a window: the fused attention kernel on the card
+            o = L.mha(q, k, v, causal=True, window=cfg.attn_window,
+                      q_chunk=cfg.attn_q_chunk)
+            h = L.ffn_block(self.shared.ffn, cfg, h + L._proj_out(o, attn["wo"]))
+            return x + h, {"k": k, "v": v}
         h = L.rms_norm(x, blk.attn["ln"], cfg.norm_eps)
         q, k, v = L._qkv(blk.attn, cfg, h, positions)
         # implicit positions: the fused attention kernel on the card
@@ -203,16 +235,29 @@ class LM(nn.Module):
         x = x + L._proj_out(o, blk.attn["wo"])
         if hasattr(blk, "cross"):
             x = L.cross_attn_block(blk.cross, cfg, x, memory)
-        return self._ffn(blk, cfg, x), k, v
+        return self._ffn(blk, cfg, x), {"k": k, "v": v}
+
+    def _ring(self, t: torch.Tensor) -> torch.Tensor:
+        """A shared attention's prefill k or v (B,S,KV,hd) in the reference's
+        ring-buffer layout of W = ``attn_window`` slots: the last W tokens, or
+        zero-padded to W.  Token ``p`` sits at slot ``p % W`` only when S <= W
+        or S % W == 0, where ``attn_decode`` expects it; the reference's
+        ``forward`` gives this layout all the same, and so does the port."""
+        S = t.shape[1]
+        W = self.cfg.attn_window or S
+        if S >= W:
+            return t[:, -W:]
+        return torch.cat([t, t.new_zeros((t.shape[0], W - S, *t.shape[2:]))], dim=1)
 
     def forward(self, tokens: torch.Tensor, *,
                 audio_embed: torch.Tensor | None = None,
                 vision_embed: torch.Tensor | None = None,
                 remat: str = "none", return_cache: bool = False):
         """Full-sequence forward.  Returns the final hidden (B,S,d), and the
-        decode cache when ``return_cache`` (prefill path): a tuple over
-        pattern positions of ``{"k","v"}``, each stacked over cycles as
-        ``(n_cycles, B, S, KV, hd)``.
+        decode cache when ``return_cache`` (prefill path): a tuple over pattern
+        positions of each layer's entry (:meth:`_block`; a shared attention's k
+        and v in the ring layout, :meth:`_ring`), every tensor stacked over
+        cycles, e.g. k as ``(n_cycles, B, S, KV, hd)``.
 
         ``audio_embed`` (B, F, d) feeds whisper's encoder and ``vision_embed``
         (B, M, d) llama-vision's cross-attention, in the model's dtype and on its
@@ -236,17 +281,18 @@ class LM(nn.Module):
             kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  _save_products)
         for i, blk in enumerate(self.blocks):
-            if recompute:
-                x, k, v = checkpoint(self._block, blk, x, positions, memory, **kw)
-            else:
-                x, k, v = self._block(blk, x, positions, memory)
+            kind = cfg.block_kind(i)
+            args = (kind, blk, x, positions, memory)
+            x, entry = checkpoint(self._block, *args, **kw) if recompute \
+                else self._block(*args)
             if return_cache:
-                per_pos[i % cfg.cycle_len].append({"k": k, "v": v})
+                if kind == "shared_attn":
+                    entry = {name: self._ring(t) for name, t in entry.items()}
+                per_pos[i % cfg.cycle_len].append(entry)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         if return_cache:
-            caches = tuple(
-                {name: torch.stack([e[name] for e in entries])
-                 for name in ("k", "v")} for entries in per_pos)
+            caches = tuple(_tree_map(lambda *ts: torch.stack(ts), *entries)
+                           for entries in per_pos)
             return x, caches
         return x
 
@@ -271,16 +317,38 @@ class LM(nn.Module):
 
     def _cache_entry(self, kind: str, batch: int, max_len: int, device):
         cfg = self.cfg
-        if kind not in ("attn", "cross_attn"):
-            raise NotImplementedError(f"cache of block kind {kind!r} is not "
-                                      "ported yet")
-        kvs = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-        return {"k": torch.zeros(kvs, dtype=cfg.torch_dtype, device=device),
-                "v": torch.zeros(kvs, dtype=cfg.torch_dtype, device=device)}
+
+        def zeros(shape, dtype=cfg.torch_dtype, fill=0.0):
+            return torch.full(shape, fill, dtype=dtype, device=device)
+
+        f32, H = torch.float32, cfg.n_heads
+        if kind in ("attn", "cross_attn", "shared_attn"):
+            S = min(cfg.attn_window or max_len, max_len) if kind == "shared_attn" \
+                else max_len
+            kvs = (batch, S, cfg.n_kv_heads, cfg.hd)
+            return {"k": zeros(kvs), "v": zeros(kvs)}
+        if kind == "mamba":
+            e = cfg.ssm_expand * cfg.d_model
+            return {"ssm": zeros((batch, e // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                                  cfg.ssm_state), f32),
+                    "conv": zeros((batch, cfg.ssm_conv_width - 1, e))}
+        if kind == "mlstm":
+            hd = 2 * cfg.d_model // H
+            return {"state": (zeros((batch, H, hd, hd), f32), zeros((batch, H, hd), f32),
+                              zeros((batch, H), f32, L.NEG_INF))}
+        if kind == "slstm":
+            hd = cfg.d_model // H
+            return {"state": (zeros((batch, H, hd), f32), zeros((batch, H, hd), f32),
+                              zeros((batch, H, hd)), zeros((batch, H), f32, L.NEG_INF))}
+        raise ValueError(f"unknown block kind {kind!r}")
 
     def init_cache(self, batch: int, max_len: int, *, device="cuda"):
-        """Zeroed flat per-layer decode cache: a tuple of ``{"k","v"}`` of
-        ``(batch, max_len, KV, hd)`` (the self-attention's, for both kinds)."""
+        """Zeroed flat per-layer decode cache, one entry a layer: ``{"k","v"}`` of
+        ``(batch, max_len, KV, hd)`` for self-attention (a ring of
+        ``min(attn_window, max_len)`` slots for ``"shared_attn"``); ``{"ssm"
+        (batch, nh, hd, N) fp32, "conv" (batch, W-1, e)}`` for Mamba2;
+        ``{"state": (C, n, m)}`` for mLSTM and ``{"state": (c, n, h, m)}`` for
+        sLSTM, fp32 but h, with the stabilisers m at -1e30."""
         return tuple(self._cache_entry(self.cfg.block_kind(i), batch,
                                        max_len, device)
                      for i in range(self.cfg.n_layers))
@@ -292,8 +360,34 @@ class LM(nn.Module):
         flat = []
         for i in range(cfg.n_layers):
             c, p = divmod(i, cfg.cycle_len)
-            flat.append({name: t[c] for name, t in stacked[p].items()})
+            flat.append(_tree_map(lambda t: t[c], stacked[p]))
         return tuple(flat)
+
+    def serving_cache(self, stacked, filled: int, max_len: int):
+        """The flat decode cache of ``max_len`` positions that continues a
+        prefill of ``filled`` tokens, by the reference's rule
+        (``examples/serve.py``): a leaf of the prefill's shape (a recurrent
+        state, the conv inputs, a ring the prompt filled) is taken whole; a
+        sequence leaf takes the prefill's first ``filled`` positions, which
+        must fit in both (raises otherwise)."""
+        flat = self.unstack_cache(stacked)
+        first = flat[0]
+        while not isinstance(first, torch.Tensor):
+            first = next(iter(first.values())) if isinstance(first, dict) else first[0]
+        cache = self.init_cache(first.shape[0], max_len, device=first.device)
+
+        def put(dst, src):
+            if dst.shape == src.shape:
+                dst.copy_(src)
+            elif filled <= min(dst.shape[1], src.shape[1]):
+                dst[:, :filled] = src[:, :filled]
+            else:
+                raise ValueError(f"serving_cache: {filled} prefill positions do not "
+                                 f"fit a cache leaf of {tuple(dst.shape)} from "
+                                 f"{tuple(src.shape)}")
+            return dst
+
+        return tuple(_tree_map(put, dst, src) for dst, src in zip(cache, flat))
 
     @torch.no_grad()
     def decode_step(self, cache, tokens: torch.Tensor, pos: torch.Tensor, *,
@@ -301,20 +395,38 @@ class LM(nn.Module):
                     vision_embed: torch.Tensor | None = None):
         """One decode step: tokens (B,1), pos (B,).  Returns (logits, cache).
 
-        ``cache`` is the flat per-layer tuple and is written IN PLACE at
-        ``pos`` (this takes the place of donating the cache to a jitted step);
-        the returned cache is the same object.  ``pos < max_len`` is the
-        caller's contract.  The memory is recomputed every step, as the
-        reference does: whisper runs its encoder again each step.
+        ``cache`` is the flat per-layer tuple and is written IN PLACE (k and v
+        at ``pos``, or at ``pos % slots`` in a shared attention's ring; the
+        recurrent states and conv inputs whole), which takes the place of
+        donating the cache to a jitted step; the returned cache is the same
+        object.  ``pos < max_len`` is the caller's contract.  The memory is
+        recomputed every step, as the reference does: whisper runs its encoder
+        again each step.
         """
         cfg = self.cfg
         x = L.embed(self.embed, cfg, tokens)
         memory = self._memory(audio_embed, vision_embed)
-        for blk, cc in zip(self.blocks, cache):
-            x, _, _ = L.attn_decode(blk.attn, cfg, x, cc["k"], cc["v"], pos)
-            if hasattr(blk, "cross"):
-                x = L.cross_attn_block(blk.cross, cfg, x, memory)
-            x = self._ffn(blk, cfg, x)
+        for i, (blk, cc) in enumerate(zip(self.blocks, cache)):
+            kind = cfg.block_kind(i)
+            if kind == "mamba":
+                x, ssm, conv = L.mamba_block(blk.mamba, cfg, x, state=cc["ssm"],
+                                             conv_state=cc["conv"])
+                cc["ssm"].copy_(ssm)
+                cc["conv"].copy_(conv)
+            elif kind in ("mlstm", "slstm"):
+                block = L.mlstm_block if kind == "mlstm" else L.slstm_block
+                x, state = block(getattr(blk, kind), cfg, x, state=cc["state"])
+                for dst, src in zip(cc["state"], state):
+                    dst.copy_(src)
+            elif kind == "shared_attn":
+                h, _, _ = L.attn_decode(self.shared.attn, cfg, x @ blk.in_proj,
+                                        cc["k"], cc["v"], pos, window=cfg.attn_window)
+                x = x + L.ffn_block(self.shared.ffn, cfg, h)
+            else:
+                x, _, _ = L.attn_decode(blk.attn, cfg, x, cc["k"], cc["v"], pos)
+                if hasattr(blk, "cross"):
+                    x = L.cross_attn_block(blk.cross, cfg, x, memory)
+                x = self._ffn(blk, cfg, x)
         x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = L.logits_chunked(x, self.embed["tok"], cfg)
         return logits[:, 0], cache

@@ -64,6 +64,14 @@ HD256_PALLAS_CASES = [
     (1, 160, 160, 2, 1, 256, True, 0),
 ]
 HD256_RAGGED_CASES = [(1, 100, 170, 2, 2, 256, True, 0)]
+# head_dim 80 (zamba2's shared attention: H = KV, causal, a sliding window; the
+# mma.sync kernel's 64-row q tiles and 64-key kv tiles): causal, a window across
+# the Pallas test's 32-key blocks, and a window with fewer queries than keys.
+HD80_PALLAS_CASES = [
+    (2, 128, 128, 4, 4, 80, True, 0),
+    (1, 160, 160, 2, 2, 80, True, 48),
+    (1, 64, 192, 4, 4, 80, True, 64),
+]
 # The reference's shapes, then the RMSNorm forward's kernel edges: 1024 (the widest
 # row a lane group takes), 1032 (the narrowest the row pipeline takes), gemma's
 # 3072 and granite's 6144, an odd row count, a width that is not a multiple of 8.
@@ -84,7 +92,7 @@ def _t(*arrs):
     return [torch.from_numpy(a) for a in arrs]
 
 
-PALLAS_CASES = CASES + PALLAS_TILE_CASES + HD256_PALLAS_CASES
+PALLAS_CASES = CASES + PALLAS_TILE_CASES + HD256_PALLAS_CASES + HD80_PALLAS_CASES
 
 
 @pytest.mark.parametrize("case", PALLAS_CASES, ids=[str(c) for c in PALLAS_CASES])
@@ -98,7 +106,7 @@ def test_mha_reference_matches_pallas_kernel(case):
 
 
 ORACLE_CASES = (CASES + TILE_EDGE_CASES + PALLAS_TILE_CASES + HD256_PALLAS_CASES
-                + HD256_RAGGED_CASES)
+                + HD256_RAGGED_CASES + HD80_PALLAS_CASES)
 
 
 @pytest.mark.parametrize("case", ORACLE_CASES, ids=[str(c) for c in ORACLE_CASES])
@@ -570,8 +578,9 @@ def _compiled_head_dims(source: str, function: str, pattern: str) -> set:
 def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
     """``flash::variant_for`` in ``flash_attention.cuh``, read from the source: 16-bit
     head_dim 256 takes the TMA + wgmma kernel (kSm90Wgmma) forward and the mma.sync
-    kernels backward; every head_dim the rule sends to a kernel is compiled into
-    that kernel's dispatch, forward and backward; no library is loaded."""
+    kernels backward; head_dim 80 the mma.sync (16-bit) and scalar (fp32) kernels
+    forward and none backward; every head_dim the rule sends to a kernel is compiled
+    into that kernel's dispatch, forward and backward; no library is loaded."""
     header = (CSRC / "flash_attention.cuh").read_text()
     enum = dict((name, int(code)) for name, code in
                 re.findall(r"(k\w+) = (\d+)", re.search(r"enum Variant \{([^}]*)\}",
@@ -580,17 +589,20 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
         ["scalar", "mma_sync", "sm90_wgmma"]
     body = re.search(r"inline int variant_for\(int hd, int dtype, bool backward\) \{(.*?)\n\}",
                      header, re.S).group(1)
-    assert "if (!one_of(kHeadDims, hd)) return -1;" in body
+    assert ("if (!(backward ? one_of(kBwdHeadDims, hd) : one_of(kHeadDims, hd))) return -1;"
+            in body)
     assert "if (dtype == 0) return kScalar;" in body
     assert ("backward ? one_of(kSm90BwdHeadDims, hd) : one_of(kSm90HeadDims, hd)" in body
             and "return wgmma ? kSm90Wgmma : kMmaSync;" in body)
-    head_dims = _c_int_list("flash_attention.cuh", "kHeadDims")
+    head_dims = {False: _c_int_list("flash_attention.cuh", "kHeadDims"),
+                 True: _c_int_list("flash_attention.cuh", "kBwdHeadDims")}
     wgmma = {False: set(_c_int_list("flash_attention.cuh", "kSm90HeadDims")),
              True: set(_c_int_list("flash_attention.cuh", "kSm90BwdHeadDims"))}
-    assert tuple(head_dims) == flash_mod.HEAD_DIMS
+    assert tuple(head_dims[False]) == flash_mod.HEAD_DIMS
+    assert tuple(head_dims[True]) == flash_mod.BWD_HEAD_DIMS
 
     def rule(hd, dtype, backward):   # the C rule, as parsed above
-        if hd not in head_dims:
+        if hd not in head_dims[backward]:
             return -1
         if dtype == 0:
             return enum["kScalar"]
@@ -600,7 +612,10 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
         assert flash_mod.VARIANTS[rule(256, dtype, False)] == "sm90_wgmma"
         assert flash_mod.VARIANTS[rule(256, dtype, True)] == "mma_sync"
         assert flash_mod.VARIANTS[rule(128, dtype, True)] == "sm90_wgmma"
+        assert flash_mod.VARIANTS[rule(80, dtype, False)] == "mma_sync"
     assert flash_mod.VARIANTS[rule(256, 0, False)] == "scalar"
+    assert flash_mod.VARIANTS[rule(80, 0, False)] == "scalar"
+    assert all(rule(80, dtype, True) == -1 for dtype in (0, 1, 2))
     # the C entries ask for the forward's and the backward's rule
     assert "flash::variant_for(hd, dtype, false)" in (CSRC / "flash_attention.cu").read_text()
     assert "flash::variant_for(c->hd, c->dtype, true)" in \
@@ -619,8 +634,12 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
             "flash_attention_bwd.cu", "int dispatch_mma",
             r"case (\d+): return launch_mma<T, \1,"),
     }
+    compiled[(False, "scalar")] = _compiled_head_dims(
+        "flash_attention.cu", "int dispatch_scalar", r"case (\d+): return \(int\)launch_scalar<\1>")
+    compiled[(True, "scalar")] = _compiled_head_dims(
+        "flash_attention_bwd.cu", "int dispatch_scalar", r"case (\d+): return launch_scalar<\1>")
     for backward in (False, True):
-        for kind in ("sm90_wgmma", "mma_sync"):
-            routed = {hd for hd in head_dims
-                      if flash_mod.VARIANTS[rule(hd, 1, backward)] == kind}
+        for kind, dtype in (("sm90_wgmma", 1), ("mma_sync", 1), ("scalar", 0)):
+            routed = {hd for hd in head_dims[backward]
+                      if flash_mod.VARIANTS[rule(hd, dtype, backward)] == kind}
             assert routed == compiled[(backward, kind)], (backward, kind)

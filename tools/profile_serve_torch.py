@@ -102,11 +102,7 @@ def main() -> None:
         state["logits"], state["stacked"] = prefill({"tokens": tokens, **mods})
 
     def make_cache():
-        cache = model.init_cache(B, S + 64, device=dev)
-        for dst, src in zip(cache, model.unstack_cache(state["stacked"])):
-            for name in dst:
-                dst[name][:, :S] = src[name]
-        state["cache"], state["t"] = cache, 0
+        state["cache"], state["t"] = model.serving_cache(state["stacked"], S, S + 64), 0
 
     def do_decode():
         pos = torch.full((B,), S + state["t"], device=dev)
