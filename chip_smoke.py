@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # everything, as below
     python3 chip_smoke.py --layers 4      # cut qwen2-7b's served depth (never its width)
     python3 chip_smoke.py --skip-serve --skip-train   # build and check the kernels, run small
+    python3 chip_smoke.py --skip-serve    # the kernels, small and both train phases
     python3 chip_smoke.py --out DIR       # also write report.json(l) and nvcc's log there
 
 What it does, one JSON line per phase on standard output, each with the card's SM
@@ -15,36 +16,43 @@ average taken at the phase's start and end (read only, never a check):
            with nvcc (first use of the library);
   kernels  holds each hand-written kernel against its plain PyTorch version on the
            card, at the reference's test cases and cases across the wgmma kernels'
-           tile edges (fp32, bf16, fp16) and at the shapes the serving and training
-           paths give it: the forwards, the attention forward's lse, and the two
-           backwards (dq, dk, dv; dx, dw); records which flash variant each case
-           launched, forward and backward (forward: 16-bit head_dim 64/128/256
-           wgmma; backward: 16-bit head_dim 64/128 wgmma; other 16-bit mma.sync,
-           fp32 scalar; head_dim 80 forward only), shows that a call either wgmma
-           kernel cannot take, and a backward at head_dim 80, raise instead of
-           running another variant or a plain version, that two backward
-           calls on the same inputs give dk, dv, dx and dw bit for bit (dq within
-           tolerance: its sum runs through atomics), and times kernel, plain version,
-           one library call (a yardstick only; the port never calls it; for the
-           RMSNorm backward three readings in turns with the kernel, and the names of
-           the kernels it launches) and the card's bound, and the device time of each
-           kernel an attention backward call launches; the RMSNorm forward in
-           turns with F.rms_norm, three readings each, at every shape of every
-           path, and both device-only, replayed from a CUDA graph; every
-           flash and RMSNorm shape the family serves and the dense families
-           qwen3-32b and granite-34b give the kernels at full width (causal
-           self-attention, head_dim 256, one KV head, q/k-norm, cross-attention with
-           more queries than keys at ragged key counts, the encoder, zamba2's shared
-           attention at head_dim 80 with its 4096-token window, bf16 and fp32, and
-           6144 tokens where the window bites, the Mamba2 gated norm over 5120), the
-           flash forward, lse and backward held there (the forward alone at head_dim
-           80) and the forward timed beside SDPA (not where the window bites: SDPA
-           takes no window);
+           tile edges (fp32, bf16, fp16; at head_dim 80 ragged Sq and Skv, Sq < Skv,
+           the window's edge, no mask with Sq > Skv and a softcap) and at the shapes
+           the serving and training paths give it: the forwards, the attention
+           forward's lse, and the two backwards (dq, dk, dv; dx, dw); records which
+           flash variant each case launched, forward and backward (forward: 16-bit
+           head_dim 64/80/128/256 wgmma; backward: 16-bit head_dim 64/128 wgmma;
+           other 16-bit mma.sync, fp32 scalar), shows that a call either wgmma
+           kernel cannot take raises instead of running another variant or a plain
+           version, and that a head_dim compiled into neither direction (96) is
+           refused by the autograd wrapper, both launchers and both C entries and
+           launches nothing, that two backward calls on the same inputs give dk,
+           dv, dx and dw bit for bit (dq within tolerance: its sum runs through
+           atomics), and times kernel, plain version, one library call (a yardstick
+           only; the port never calls it; for the RMSNorm backward three readings
+           in turns with the kernel, and the names of the kernels it launches) and
+           the card's bound, and the device time of each kernel an attention
+           backward call launches; the RMSNorm forward in turns with F.rms_norm,
+           three readings each, at every shape of every path, and both device-only,
+           replayed from a CUDA graph; every flash and RMSNorm shape the family
+           serves and the dense families qwen3-32b and granite-34b give the kernels
+           at full width (causal self-attention, head_dim 256, one KV head,
+           q/k-norm, cross-attention with more queries than keys at ragged key
+           counts, the encoder, zamba2's shared attention at head_dim 80 with its
+           4096-token window, and 6144 tokens where the window bites, the Mamba2
+           gated norm over 5120), the flash forward, lse and backward held there
+           and the forward timed beside SDPA (where the window bites SDPA is given
+           it as a boolean mask); the backward timed beside SDPA's at the training
+           shapes of qwen2-7b (wgmma), zamba2-2.7b (head_dim 80) and gemma-7b
+           (head_dim 256; both on the mma.sync passes);
   small    reduced fp32 models on the card (through the kernels) against the same
            weights on the CPU (plain versions), one per family: qwen2-7b, gemma-7b,
            qwen3-32b, granite-34b, qwen3-moe, dbrx, llama-3.2-vision, whisper, zamba2,
-           xlstm (a 32-token prompt: longer than the vision and audio models' 16
-           patches / 24 frames, and twice zamba2's 16-token window, so its ring wraps):
+           xlstm, and zamba2 again at its own head_dim 80, there on the scalar
+           flash kernels (the 16-bit ones at 80 are held in the kernels phase and
+           run whole in serve_zamba and train_zamba); a 32-token prompt, longer
+           than the vision and audio models' 16 patches / 24 frames, and twice
+           zamba2's 16-token window, so its ring wraps:
            prefill + decode with exact launch counts, then three train steps (loss,
            grad norm, every parameter, exact launch counts per step) and, for
            qwen2-7b, qwen3-moe, whisper and zamba2, a checkpoint round trip of the
@@ -61,8 +69,9 @@ average taken at the phase's start and end (read only, never a check):
            embeddings, so its cross-attention has more queries than keys),
            whisper-medium (1500 audio frames, 4 x 448 tokens), gemma-7b (4 x 2048
            tokens, head_dim 256), zamba2-2.7b (4 x 2048 tokens: Mamba2 and the shared
-           attention at head_dim 80 on the mma.sync kernel) and xlstm-125m (4 x 2048
-           tokens: mLSTM and sLSTM, no attention), each model freed before the next;
+           attention at head_dim 80, every flash launch on the wgmma kernel) and
+           xlstm-125m (4 x 2048 tokens: mLSTM and sLSTM, no attention), each model
+           freed before the next;
            the agreement check for all but MoE (its capacity depends on how many
            tokens a call holds); for the recurrent ones 257 tokens take the
            sequential scans, 256 the chunkwise forms, and the check is held on a
@@ -71,8 +80,12 @@ average taken at the phase's start and end (read only, never a check):
   train    (the serve model freed first) qwen2-7b at full width, 8 of 28 layers,
            bf16: the Trainer over SyntheticLM batches of 2 x 4096 tokens for 6
            steps, counts at 0 just before; exact launches of every kernel, forward
-           and backward, per step; finite losses, the step-0 loss where a random
-           init puts it; ms per step, tokens/s, MFU and peak memory.
+           and backward, per step, each flash launch the variant the split by shape
+           names; finite losses, the step-0 loss where a random init puts it; ms
+           per step, tokens/s, MFU and peak memory;
+  train_zamba  (the model before freed) the same for zamba2-2.7b at full width, 6 of
+           54 layers (4 Mamba2, 2 occurrences of the shared attention block), 4
+           steps: flash at head_dim 80 forward (wgmma) and backward (mma.sync).
 
 Then the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.  Any failed check ends the run with a non-zero exit
@@ -135,9 +148,19 @@ FLASH_BWD_EDGE_CASES = [
     (2, 191, 321, 28, 4, 128, True, 0),
     (2, 260, 260, 8, 2, 64, True, 150),
 ]
+# Head_dim 80 (zamba2's shared attention; the wgmma forward's 64- and 16-column
+# boxes, the mma.sync backward's 64-row and 64-key tiles): ragged Sq and Skv, Sq < Skv
+# with GQA, the window's edge across the 128-key tiles, no mask with Sq > Skv.
+# Held forward, lse and backward in fp32, bf16 and fp16.
+FLASH_HD80_CASES = [
+    (1, 200, 200, 4, 4, 80, True, 0),
+    (2, 191, 321, 8, 2, 80, True, 0),
+    (1, 300, 300, 4, 4, 80, True, 100),
+    (1, 200, 130, 4, 4, 80, False, 0),
+]
 # softcap 20 on scores scaled by 3 x 3, as the reference's test has it
 FLASH_SOFTCAP_CASES = [(1, 64, 64, 2, 2, 32, True, 0), (1, 200, 200, 4, 2, 128, True, 0),
-                       (1, 130, 130, 2, 2, 256, True, 0)]
+                       (1, 130, 130, 2, 2, 256, True, 0), (1, 200, 200, 4, 4, 80, True, 0)]
 # Cross-attention: no mask, more queries than keys (key counts ragged against the
 # 128-key tile), every query tile of the forward and of the wgmma backward past the
 # last key tile.  Held in fp32, bf16 and fp16, forward, lse and backward.
@@ -171,13 +194,23 @@ SHAPE_ONLY = (("qwen3_32b", 2048), ("granite_34b", 2048))
 SMALL_ARCHS = ("qwen2_7b", "gemma_7b", "qwen3_32b", "granite_34b", "qwen3_moe_30b_a3b",
                "dbrx_132b", "llama_3p2_vision_11b", "whisper_medium", "zamba2_2p7b",
                "xlstm_125m")
+# reduced models at another head_dim than reduced()'s 32: zamba2 at its own 80, so
+# that the card-against-CPU steps run the head_dim-80 flash kernels too.  The small
+# phase is float32, so these are the scalar kernels; the 16-bit ones at 80 (the wgmma
+# forward, the mma.sync backward) are held kernel by kernel at zamba2's path shapes in
+# the kernels phase and run whole in serve_zamba and train_zamba
+SMALL_HEAD_DIMS = (("zamba2_2p7b", 80),)
 # the small phase's checkpoint round trips: one of each kind of parameter tree
 SMALL_CHECKPOINTS = ("qwen2_7b", "qwen3_moe_30b_a3b", "whisper_medium", "zamba2_2p7b")
-SM90_HEAD_DIMS = (64, 128, 256)   # 16-bit head_dims the forward runs on the wgmma kernel
-SM90_BWD_HEAD_DIMS = (64, 128)    # ... and the backward
-# the kernels line's entry of each forward variant that a main path runs
-FLASH_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention", "mma_sync": "flash_attention_mma_sync"}
-NO_BWD_HEAD_DIMS = (80,)          # head_dims with a forward kernel and no backward one
+SM90_HEAD_DIMS = (64, 80, 128, 256)   # 16-bit head_dims the forward runs on the wgmma kernel
+SM90_BWD_HEAD_DIMS = (64, 128)        # ... and the backward
+# the kernels line's entry of each flash variant that a main path runs, forward
+# (every 16-bit head_dim a path has is a wgmma one) and backward (head_dim 128 on
+# the wgmma kernel, zamba2's 80 on the mma.sync passes)
+FLASH_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention"}
+FLASH_BWD_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention_bwd",
+                             "mma_sync": "flash_attention_bwd_mma_sync"}
+UNCOMPILED_HEAD_DIM = 96          # compiled into neither direction: must be refused
 RMSNORM_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64)]
 
 # Tolerances (absolute and relative, as in the reference's tests), with reasons:
@@ -440,7 +473,7 @@ def run(args, torch) -> None:
     flash_cases = []
     for dtype, tol in ((torch.float32, TOL_FLASH_FP32),
                        (torch.bfloat16, TOL_16BIT), (torch.float16, TOL_16BIT)):
-        for case in FLASH_CASES + FLASH_TILE_EDGE_CASES + FLASH_CROSS_CASES:
+        for case in FLASH_CASES + FLASH_TILE_EDGE_CASES + FLASH_CROSS_CASES + FLASH_HD80_CASES:
             flash_cases.append(flash_case(case, dtype, tol))
         stol = TOL_FLASH_SOFTCAP if dtype == torch.float32 else TOL_16BIT
         for case in FLASH_SOFTCAP_CASES:
@@ -479,7 +512,7 @@ def run(args, torch) -> None:
     flash_bwd_cases = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for case in (FLASH_CASES + FLASH_TILE_EDGE_CASES + FLASH_BWD_EDGE_CASES
-                     + FLASH_CROSS_CASES):
+                     + FLASH_CROSS_CASES + FLASH_HD80_CASES):
             flash_bwd_cases.append(flash_bwd_case(case, dtype))
         for case in FLASH_SOFTCAP_CASES:
             flash_bwd_cases.append(flash_bwd_case(case, dtype, scale=3.0, softcap=20.0))
@@ -487,7 +520,7 @@ def run(args, torch) -> None:
     # A call the wgmma kernel cannot take must raise, never run another variant:
     # q one element past a 16-byte boundary (the wrapper refuses it first, so the
     # C launcher is called directly) cannot be described by a tensor map.  Held at
-    # head_dim 128 and 256.
+    # head_dim 128, 256 and 80.
     lib = _build.load()
 
     def misaligned_q(case):
@@ -497,7 +530,7 @@ def run(args, torch) -> None:
         return q, k, v, q_off
 
     refusal = []
-    for case in (FLASH_TILE_EDGE_CASES[0], FLASH_TILE_EDGE_CASES[4]):
+    for case in (FLASH_TILE_EDGE_CASES[0], FLASH_TILE_EDGE_CASES[4], FLASH_HD80_CASES[0]):
         q, k, v, q_off = misaligned_q(case)
         o = torch.full_like(q, float("nan"))
         torch.cuda.synchronize()
@@ -601,6 +634,7 @@ def run(args, torch) -> None:
     B_REQ, S_REQ, GEN_STEPS, CACHE_EXTRA = 4, 2048, 16, 32
     B_TRAIN, S_TRAIN = 2, 4096   # TRAIN_4K's length; its global batch of 256 cut to 2
     TRAIN_LAYERS = 8
+    ZAMBA_TRAIN_LAYERS = 6   # two of zamba2's (mamba, mamba, shared_attn) cycles
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     bf16 = torch.bfloat16
 
@@ -614,39 +648,50 @@ def run(args, torch) -> None:
             m &= qpos - kpos < window
         return int(m.sum())
 
-    def sdpa(q, k, v, causal):
-        """One library call computing the same attention (a yardstick only)."""
+    def window_mask(Sq, Skv, window):
+        """The causal mask with a window as the boolean (Sq, Skv) mask SDPA takes."""
+        qpos = torch.arange(Sq, device=dev)[:, None] + (Skv - Sq)
+        kpos = torch.arange(Skv, device=dev)[None, :]
+        return (qpos >= kpos) & (qpos - kpos < window)
+
+    def sdpa(q, k, v, causal, mask=None):
+        """One library call computing the same attention (a yardstick only): causal
+        or not, or under an explicit boolean mask where a window bites (SDPA takes
+        no window of its own)."""
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
         try:
             call = lambda: F.scaled_dot_product_attention(   # noqa: E731
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
+                qt, kt, vt, enable_gqa=True, **kw)
             call()
         except TypeError:   # an older torch without enable_gqa: repeat k/v beforehand
             g = q.shape[2] // k.shape[2]
             kr, vr = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
-            call = lambda: F.scaled_dot_product_attention(   # noqa: E731
-                qt, kr, vr, is_causal=causal)
+            call = lambda: F.scaled_dot_product_attention(qt, kr, vr, **kw)  # noqa: E731
         return call
 
     def timed_flash(case, entry) -> dict:
         """The forward at one bf16 case: ms, the plain version's, SDPA's and the bound.
-        SDPA takes no window: it computes the same function only where the window
-        does not bite (every key a query can see lies inside it), else it is null."""
+        Where the window bites (a query would see a key outside it), SDPA is given
+        the window as an explicit boolean mask (`library_call` says which)."""
         B_, Sq_, Skv_, H_, KV_, hd_, causal_, window_ = case
         q, k, v = flash_inputs(case, bf16)
         kw = dict(causal=causal_, window=window_)
         ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), 20)
         plain_ms = time_ms(lambda: ops.mha_reference(q, k, v, **kw), 3, 1)
         same = visible_pairs(Sq_, Skv_, causal_, window_) == visible_pairs(Sq_, Skv_, causal_, 0)
-        library_ms = time_ms(sdpa(q, k, v, causal_), 20) if same else None
+        mask = None if same else window_mask(Sq_, Skv_, window_)
+        library_ms = time_ms(sdpa(q, k, v, causal_, mask), 20)
         flops = 4.0 * hd_ * visible_pairs(Sq_, Skv_, causal_, window_) * B_ * H_
         bounds = {"operations": flops / PEAK_TENSOR_16BIT_FLOPS * 1e3,
                   "bytes": 2.0 * (2 * q.numel() + k.numel() + v.numel())
                   / PEAK_BYTES_PER_S * 1e3}
-        del q, k, v
+        del q, k, v, mask
         return {"case": list(case), "variant": entry["variant"],
                 "max_abs_err": entry["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": max(bounds.values()),
+                "library_ms": library_ms,
+                "library_call": "sdpa" if same else "sdpa_bool_mask",
+                "bound_ms": max(bounds.values()),
                 "bound_by": max(bounds, key=bounds.get),
                 "tflops": flops / (ms * 1e-3) / 1e12}
 
@@ -733,13 +778,7 @@ def run(args, torch) -> None:
         for case in p_flash:
             entry = {"path": phase, **flash_case(case, bf16, TOL_16BIT)}
             flash_cases.append(entry)
-            if case[5] in NO_BWD_HEAD_DIMS:
-                # no backward kernel (no path trains at this head_dim): the forward
-                # is held in fp32 too, on the scalar kernel
-                flash_cases.append({"path": phase,
-                                    **flash_case(case, torch.float32, TOL_FLASH_FP32)})
-            else:
-                flash_bwd_cases.append({"path": phase, **flash_bwd_case(case, bf16)})
+            flash_bwd_cases.append({"path": phase, **flash_bwd_case(case, bf16)})
             torch.cuda.empty_cache()
             path_timed.setdefault(phase, []).append(timed_flash(case, entry))
         for shape in p_rms:
@@ -748,8 +787,8 @@ def run(args, torch) -> None:
         torch.cuda.empty_cache()
 
     # zamba2's shared attention where its window bites (6144 tokens, a 4096-token
-    # window), bf16, held against the plain version and timed (no library call takes
-    # a window)
+    # window), bf16, held against the plain version and timed beside SDPA given the
+    # window as a boolean mask
     zcfg = get_config("zamba2_2p7b")
     window_case = (1, 6144, 6144, zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd, True,
                    zcfg.attn_window)
@@ -758,36 +797,122 @@ def run(args, torch) -> None:
     window_timed = timed_flash(window_case, window_entry)
     torch.cuda.empty_cache()
 
-    # a backward at a head_dim with no backward kernel raises, through the autograd
-    # wrapper and through the launcher alike, and runs nothing
-    no_bwd = []
-    for hd_ in NO_BWD_HEAD_DIMS:
-        q, k, v = flash_inputs((1, 128, 128, 4, 4, hd_, True, 0), bf16)
-        o, lse = flash_mod.launch_forward(q, k, v, True, 0, 0.0, with_lse=True)
-        before = ops.flash_bwd_launches_by_variant()
-        raised = {}
-        for how, call in (
-                ("autograd", lambda: ops.flash_attention(q.requires_grad_(), k, v, causal=True)),
-                ("launcher", lambda: flash_mod.launch_backward(
-                    q.detach(), k, v, o, lse, torch.ones_like(o), True, 0, 0.0))):
-            try:
-                call()
-                raised[how] = ""
-            except ValueError as exc:
-                raised[how] = str(exc)
-        q.requires_grad_(False)
-        if not all(raised.values()) or ops.flash_bwd_launches_by_variant() != before:
-            fail(f"flash backward at head_dim {hd_}: raised {raised}, launches "
-                 f"{before} -> {ops.flash_bwd_launches_by_variant()}")
-        no_bwd.append({"head_dim": hd_, "dtype": str(bf16), "raised": raised})
-        del q, k, v, o, lse
+    # A head_dim compiled into neither direction is refused everywhere, and nothing
+    # runs: the autograd wrapper, the Python launchers of both directions, and the C
+    # entries (code -1, outputs left as they were).
+    xcase = (1, 128, 128, 4, 4, UNCOMPILED_HEAD_DIM, True, 0)
+    q, k, v = flash_inputs(xcase, bf16)
+    x_out = [torch.full_like(q, float("nan")) for _ in range(4)]   # o, then dq, dk, dv
+    x_lse = torch.zeros((1, 4, 128), dtype=torch.float32, device=dev)
+    x_scratch = torch.zeros((1, 4, 128), dtype=torch.float32, device=dev)
+    x_codes = {}
 
-    # the training path's attention shape, bf16: the backward checked and timed, the
-    # forward timed with and without lse
+    def c_forward():
+        x_codes["c_forward"] = lib.repro_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), x_out[0].data_ptr(), None, *xcase[:6],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *x_out[0].stride()[:3], 1, 0,
+            0.0, _build.DTYPE_CODES[bf16], 0, torch.cuda.current_stream().cuda_stream)
+        _build.check(x_codes["c_forward"], "flash_attention")
+
+    def c_backward():
+        call = _build.FlashBwdCall(
+            q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=q.data_ptr(),
+            dout=q.data_ptr(), lse=x_lse.data_ptr(), delta=x_scratch.data_ptr(),
+            dq_acc=None, dq=x_out[1].data_ptr(), dk=x_out[2].data_ptr(),
+            dv=x_out[3].data_ptr(), stream=torch.cuda.current_stream().cuda_stream,
+            B=1, Sq=128, Skv=128, H=4, KV=4, hd=UNCOMPILED_HEAD_DIM, causal=1, window=0,
+            softcap=0.0, dtype=_build.DTYPE_CODES[bf16], device=0)
+        for name, t_ in zip(_build.FLASH_BWD_TENSORS, (q, k, v, q, q, *x_out[1:])):
+            for i, part in enumerate(("sb", "ss", "sh")):
+                setattr(call, f"{name}_{part}", t_.stride(i))
+        x_codes["c_backward"] = lib.repro_flash_attention_bwd(ctypes.addressof(call))
+        _build.check(x_codes["c_backward"], "flash_attention backward")
+
+    before = (ops.flash_launches_by_variant(), ops.flash_bwd_launches_by_variant())
+    raised = {}
+    for how, call in (
+            ("autograd", lambda: ops.flash_attention(q.detach().requires_grad_(), k, v,
+                                                     causal=True)),
+            ("forward_launcher", lambda: flash_mod.launch_forward(
+                q, k, v, True, 0, 0.0, with_lse=True)),
+            ("backward_launcher", lambda: flash_mod.launch_backward(
+                q, k, v, q, x_lse, q, True, 0, 0.0)),
+            ("c_forward", c_forward), ("c_backward", c_backward)):
+        try:
+            call()
+            raised[how] = ""
+        except (ValueError, RuntimeError) as exc:
+            raised[how] = str(exc)
+    torch.cuda.synchronize()
+    after = (ops.flash_launches_by_variant(), ops.flash_bwd_launches_by_variant())
+    untouched = all(bool(torch.isnan(t_).all()) for t_ in x_out)
+    if (not all(raised.values()) or after != before or not untouched
+            or set(x_codes.values()) != {-1}):
+        fail(f"flash at head_dim {UNCOMPILED_HEAD_DIM}: raised {raised}, C codes {x_codes} "
+             f"(want -1), launches {before} -> {after}, outputs untouched {untouched}")
+    uncompiled = {"head_dim": UNCOMPILED_HEAD_DIM, "dtype": str(bf16), "raised": raised,
+                  "c_codes": x_codes, "outputs_untouched": untouched}
+    del q, k, v, x_out, x_lse, x_scratch
+
+    def timed_backward(case) -> dict:
+        """The backward at one bf16 training case: held against the plain version
+        (flash_bwd_case), then timed beside the plain version, the backward of SDPA
+        (given the window as a boolean mask where it bites) and the bound."""
+        B_, Sq_, Skv_, H_, KV_, hd_, causal_, window_ = case
+        entry = flash_bwd_case(case, bf16)
+        flash_bwd_cases.append(entry)
+        torch.cuda.empty_cache()
+        q, k, v = flash_inputs(case, bf16)
+        do = randn(q.shape, bf16)
+        o, lse = flash_mod.launch_forward(q, k, v, causal_, window_, 0.0, with_lse=True)
+        ms = time_ms(lambda: flash_mod.launch_backward(
+            q, k, v, o, lse, do, causal_, window_, 0.0), 10)
+        plain_ms = time_ms(lambda: ops.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal=causal_, window=window_), 2, 1)
+        torch.cuda.empty_cache()
+        pairs = visible_pairs(Sq_, Skv_, causal_, window_)
+        same = pairs == visible_pairs(Sq_, Skv_, causal_, 0)
+        kw = dict(is_causal=causal_) if same else dict(attn_mask=window_mask(Sq_, Skv_,
+                                                                              window_))
+        leaves = [t_.transpose(1, 2).detach().requires_grad_() for t_ in (q, k, v)]
+        try:
+            out = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **kw)
+        except TypeError:   # an older torch without enable_gqa
+            out = F.scaled_dot_product_attention(
+                leaves[0], *(t_.repeat_interleave(H_ // KV_, dim=1) for t_ in leaves[1:]),
+                **kw)
+        dot = do.transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dot,
+                                                         retain_graph=True), 10)
+        flops = 10.0 * hd_ * pairs * B_ * H_
+        nbytes = 2.0 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * o.numel()) \
+            + 4.0 * lse.numel()
+        bounds = {"operations": flops / PEAK_TENSOR_16BIT_FLOPS * 1e3,
+                  "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
+        del q, k, v, do, o, lse, leaves, out, dot, kw
+        torch.cuda.empty_cache()
+        return {"case": list(case), "variant": entry["variant"],
+                "max_abs_err": entry["max_abs_err"], "max_err_share": entry["max_err_share"],
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "library_call": "sdpa_backward" if same else "sdpa_bool_mask_backward",
+                "bound_ms": max(bounds.values()), "bound_by": max(bounds, key=bounds.get),
+                "tflops": flops / (ms * 1e-3) / 1e12}
+
+    # the backward on the mma.sync passes: zamba2's training shape (head_dim 80, its
+    # window not biting at 4096 tokens), which train_zamba runs, and gemma's (head_dim
+    # 256), which no main path trains
+    zamba_train_case = (B_TRAIN, S_TRAIN, S_TRAIN, zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd,
+                        True, zcfg.attn_window)
+    gcfg = get_config("gemma_7b")
+    bwd_mma = {"head_dim_80": timed_backward(zamba_train_case),
+               "head_dim_256": timed_backward((B_TRAIN, S_TRAIN, S_TRAIN, gcfg.n_heads,
+                                               gcfg.n_kv_heads, gcfg.hd, True, 0))}
+
+    # the training path's attention shape, bf16: the backward checked and timed beside
+    # SDPA's, then the forward timed with and without lse, two backward calls
+    # compared, and the device time of each kernel a backward call launches
     train_case = (B_TRAIN, S_TRAIN, S_TRAIN, H, KV, hd, cfg.causal, 0)
-    train_bwd_entry = flash_bwd_case(train_case, bf16)
-    flash_bwd_cases.append(train_bwd_entry)
-    torch.cuda.empty_cache()
+    train_bwd = timed_backward(train_case)
     q, k, v = flash_inputs(train_case, bf16)
     do = randn(q.shape, bf16)
     o, lse = flash_mod.launch_forward(q, k, v, cfg.causal, 0, 0.0, with_lse=True)
@@ -796,8 +921,11 @@ def run(args, torch) -> None:
             q, k, v, cfg.causal, 0, 0.0, with_lse=True), 20),
         "ms_without_lse": time_ms(lambda: flash_mod.launch_forward(
             q, k, v, cfg.causal, 0, 0.0, with_lse=False), 20)}
-    bwd_ms = time_ms(lambda: flash_mod.launch_backward(
-        q, k, v, o, lse, do, cfg.causal, 0, 0.0), 10)
+    fwd_train["bound_ms"] = max(
+        4.0 * hd * visible_pairs(S_TRAIN, S_TRAIN, cfg.causal, 0) * B_TRAIN * H
+        / PEAK_TENSOR_16BIT_FLOPS * 1e3,
+        (2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * lse.numel())
+        / PEAK_BYTES_PER_S * 1e3)
     # two calls on the same inputs: dk and dv bit for bit (summed in registers in a
     # fixed order); dq within tolerance (the wgmma kernel sums it with atomics)
     first = flash_mod.launch_backward(q, k, v, o, lse, do, cfg.causal, 0, 0.0)
@@ -810,7 +938,6 @@ def run(args, torch) -> None:
     if not (bwd_repeat["dk_bit_exact"] and bwd_repeat["dv_bit_exact"]):
         fail(f"flash backward repeat at the training shape: {bwd_repeat}")
     del first, again
-    # the device time of each kernel a backward call launches (one profiled call)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         flash_mod.launch_backward(q, k, v, o, lse, do, cfg.causal, 0, 0.0)
@@ -821,31 +948,7 @@ def run(args, torch) -> None:
         if e.device_type == torch.autograd.DeviceType.CUDA and name:
             bwd_kernel_ms[name.group()] = (bwd_kernel_ms.get(name.group(), 0.0)
                                            + e.time_range.elapsed_us() / 1e3)
-    bwd_plain_ms = time_ms(lambda: ops.flash_attention_bwd_reference(
-        q, k, v, o, lse, do, causal=cfg.causal), 2, 1)
-    torch.cuda.empty_cache()
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    dot = do.transpose(1, 2)
-    try:
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=cfg.causal,
-                                             enable_gqa=True)
-    except TypeError:   # an older torch without enable_gqa
-        out = F.scaled_dot_product_attention(
-            qt, kt.repeat_interleave(H // KV, dim=1), vt.repeat_interleave(H // KV, dim=1),
-            is_causal=cfg.causal)
-    bwd_lib_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                     retain_graph=True), 10)
-    pairs_train = visible_pairs(S_TRAIN, S_TRAIN, cfg.causal, 0) * B_TRAIN * H
-    bwd_flops = 10.0 * hd * pairs_train
-    bwd_bytes = 2.0 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * o.numel()) \
-        + 4.0 * lse.numel()
-    bwd_bounds = {"operations": bwd_flops / PEAK_TENSOR_16BIT_FLOPS * 1e3,
-                  "bytes": bwd_bytes / PEAK_BYTES_PER_S * 1e3}
-    fwd_train_flops = 4.0 * hd * pairs_train
-    fwd_train["bound_ms"] = max(fwd_train_flops / PEAK_TENSOR_16BIT_FLOPS * 1e3,
-                                2.0 * (2 * q.numel() + k.numel() + v.numel()) / PEAK_BYTES_PER_S
-                                * 1e3 + 4.0 * lse.numel() / PEAK_BYTES_PER_S * 1e3)
-    del q, k, v, do, o, lse, qt, kt, vt, dot, out
+    del q, k, v, do, o, lse
     torch.cuda.empty_cache()
 
     # the serving path's two shapes (prefill, decode step)
@@ -923,22 +1026,9 @@ def run(args, torch) -> None:
             "train_shape": {"q": [B_TRAIN, S_TRAIN, H, hd], **fwd_train},
             # gemma-7b's prefill shape: the wgmma kernel's head_dim-256 layout
             "head_dim_256": path_timed["serve_gemma"][0],
+            # zamba2-2.7b's: its 64- and 16-column boxes, and where its window bites
+            "head_dim_80": {**path_timed["serve_zamba"][0], "window_bites": window_timed},
             "path_shapes": path_timed},
-        # the mma.sync forward, on a main path at zamba2's head_dim 80: its serving
-        # shape, and where its window bites
-        "flash_attention_mma_sync": {
-            "name": "flash_attention_mma_sync", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:155",
-            "launches": 0, "dtype": "bfloat16",
-            "shape": {"q": [B_REQ, S_REQ, zcfg.n_heads, zcfg.hd],
-                      "kv": [B_REQ, S_REQ, zcfg.n_kv_heads, zcfg.hd], "causal": True,
-                      "window": zcfg.attn_window},
-            "tol": TOL_16BIT,
-            **{key: path_timed["serve_zamba"][0][key]
-               for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms", "tflops", "variant")},
-            "launches_by_variant": {}, "window_bites": window_timed},
         "rmsnorm_bwd": {
             "name": "rmsnorm_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
@@ -954,18 +1044,29 @@ def run(args, torch) -> None:
             "launches": 0, "dtype": "bfloat16",
             "shape": {"q": [B_TRAIN, S_TRAIN, H, hd], "kv": [B_TRAIN, S_TRAIN, KV, hd],
                       "causal": cfg.causal},
-            "max_abs_err": train_bwd_entry["max_abs_err"],
-            "max_err_share": train_bwd_entry["max_err_share"], "tol": TOL_16BIT,
-            "err_is": "share of the largest magnitude (lse, dq, dk, dv)",
-            "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-            "bound_ms": max(bwd_bounds.values()),
-            "bound_by": max(bwd_bounds, key=bwd_bounds.get),
-            "library_ms": bwd_lib_ms,
-            "tflops": bwd_flops / (bwd_ms * 1e-3) / 1e12,
-            "variant": train_bwd_entry["variant"], "launches_by_variant": {},
+            "tol": TOL_16BIT, "err_is": "share of the largest magnitude (lse, dq, dk, dv)",
+            **{key: train_bwd[key]
+               for key in ("max_abs_err", "max_err_share", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "tflops", "variant")},
+            "launches_by_variant": {},
             "repeat": bwd_repeat, "kernel_ms": bwd_kernel_ms,
             "worst_err_all_cases": max(max(c["max_err_share"].values())
                                        for c in flash_bwd_cases)},
+        # the mma.sync backward passes, on a main path at zamba2's head_dim 80
+        # (train_zamba): its training shape, and gemma's head_dim 256 beside it
+        "flash_attention_bwd_mma_sync": {
+            "name": "flash_attention_bwd_mma_sync", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:102",
+            "launches": 0, "dtype": "bfloat16",
+            "shape": {"q": [B_TRAIN, S_TRAIN, zcfg.n_heads, zcfg.hd],
+                      "kv": [B_TRAIN, S_TRAIN, zcfg.n_kv_heads, zcfg.hd], "causal": True,
+                      "window": zcfg.attn_window},
+            "tol": TOL_16BIT, "err_is": "share of the largest magnitude (lse, dq, dk, dv)",
+            **{key: bwd_mma["head_dim_80"][key]
+               for key in ("max_abs_err", "max_err_share", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "tflops", "variant")},
+            "launches_by_variant": {}, "head_dim_256": bwd_mma["head_dim_256"]},
     }
     report["kernels_checked"] = {
         "phase": "kernels", "ok": not FAILURES,
@@ -975,7 +1076,7 @@ def run(args, torch) -> None:
                        "rmsnorm_bwd_fp32_share": TOL_RMSNORM_BWD_FP32,
                        "lse_fp32_share": TOL_LSE_FP32, "lse_16bit_share": TOL_LSE_16BIT},
         "flash_cases": flash_cases, "flash_refusal": refusal,
-        "flash_bwd_refusal": bwd_refusal, "flash_no_backward": no_bwd,
+        "flash_bwd_refusal": bwd_refusal, "flash_uncompiled_head_dim": uncompiled,
         "rmsnorm_cases": rms_cases,
         "flash_bwd_cases": flash_bwd_cases, "rmsnorm_bwd_cases": rms_bwd_cases,
         "kernels": list(kernels.values())}
@@ -1015,12 +1116,16 @@ def run(args, torch) -> None:
                                       for i in range(c.n_layers))
         return out
 
-    def by_kernel(want: dict, kind: str) -> dict:
+    def by_kernel(want: dict, kind: str, bwd_kind: str = "") -> dict:
         """Launch counts keyed by the kernels line's entries: the flash forward's
-        under the entry of `kind`, the variant that runs it on the path."""
-        out = {k: n for k, n in want.items() if k != "flash_attention"}
+        under the entry of `kind`, the variant that runs it on the path, and the
+        flash backward's under that of `bwd_kind`."""
+        out = {k: n for k, n in want.items()
+               if k not in ("flash_attention", "flash_attention_bwd")}
         out.update({name: want["flash_attention"] if variant == kind else 0
                     for variant, name in FLASH_VARIANT_KERNELS.items()})
+        out.update({name: want["flash_attention_bwd"] if variant == bwd_kind else 0
+                    for variant, name in FLASH_BWD_VARIANT_KERNELS.items()})
         return out
 
     def train_launches(c) -> dict:
@@ -1042,8 +1147,8 @@ def run(args, torch) -> None:
     # A reduced fp32 model of each family, same weights on the card (kernels) and on
     # the CPU (plain versions): prefill logits and decode steps agree, then three
     # train steps, with exact launch counts.
-    def small_phase(arch: str, checkpoint: bool) -> dict:
-        small_cfg = get_config(arch).reduced()
+    def small_phase(arch: str, checkpoint: bool, head_dim: int = 0) -> dict:
+        small_cfg = get_config(arch).reduced(**({"head_dim": head_dim} if head_dim else {}))
         cpu_model = LM(small_cfg, device="cpu").init(torch.Generator().manual_seed(args.seed))
         open_gates(cpu_model)
         gpu_model = LM(small_cfg, device=dev)
@@ -1125,7 +1230,8 @@ def run(args, torch) -> None:
         param_err = max(compare(f"small {arch} train: parameter {name} card vs CPU",
                                 gpu_state["params"][name].detach().cpu(), p.detach(), 1e-3)
                         for name, p in cpu_state["params"].items())
-        out = {"config": small_cfg.name, "dtype": "float32", "prompt_tokens": 32,
+        out = {"config": small_cfg.name, "head_dim": small_cfg.hd, "dtype": "float32",
+               "prompt_tokens": 32,
                "max_abs_err": small_err, "tol": 1e-3, "launches": small_counts,
                **({"moe_prefill_repeat": moe_repeat} if moe_repeat else {}),
                "train": {"steps": 3, "batch": [4, 64], "metrics": train_metrics,
@@ -1155,6 +1261,9 @@ def run(args, torch) -> None:
     report["small"] = {"phase": "small", "models": {
         arch: small_phase(arch, checkpoint=arch in SMALL_CHECKPOINTS)
         for arch in SMALL_ARCHS}}
+    for arch, head_dim in SMALL_HEAD_DIMS:
+        report["small"]["models"][f"{arch}@head_dim{head_dim}"] = small_phase(
+            arch, checkpoint=False, head_dim=head_dim)
     emit(with_clocks(report["small"], start))
     stop_if_failed("small")
 
@@ -1321,63 +1430,80 @@ def run(args, torch) -> None:
             S_REQ, agree=True)
 
     # -------------------------------------------------------------- train
-    if not args.skip_train:
-        # full width, 8 of 28 layers: at 12 bytes a parameter (bf16 parameters and
-        # gradients, fp32 moments) the full depth's 7.07 G would need 85 GB
-        tcfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    # One model trained at full width, cut in depth: the Trainer over SyntheticLM
+    # batches of B_TRAIN x S_TRAIN tokens, remat none, the counts at 0 just before and
+    # read just after; exact launches of every kernel per step, and every flash
+    # launch the variant the split by shape names, forward and backward.
+    def train_phase(phase: str, tcfg, steps: int) -> dict:
         L_ = tcfg.n_layers
-        TRAIN_STEPS = 6
         start = probe()
         t0 = time.perf_counter()
         trainer = Trainer(TrainerConfig(
-            arch=tcfg, steps=TRAIN_STEPS, global_batch=B_TRAIN, seq_len=S_TRAIN,
+            arch=tcfg, steps=steps, global_batch=B_TRAIN, seq_len=S_TRAIN,
             ckpt_every=0, log_every=1, remat="none", seed=args.seed, device="cuda"))
         state = trainer.init_state()
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = trainer.model.n_params()
+        # parameters whose products run in a step: zamba2's shared block is held
+        # once and runs at each of its occurrences
+        n_shared = sum(tcfg.block_kind(i) == "shared_attn" for i in range(L_))
+        flop_params = n_params
+        if n_shared > 1:
+            flop_params += (n_shared - 1) * sum(
+                p.numel() for p in trainer.model.shared.parameters())
         torch.cuda.reset_peak_memory_stats()
         # the main path, with the counts at 0
         ops.reset_launch_counts()
         state, hist = trainer.run(state)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        path_counts["train"] = counts
-        path_variants["train"] = ops.flash_launches_by_variant()
-        path_bwd_variants["train"] = ops.flash_bwd_launches_by_variant()
+        path_counts[phase] = counts
+        path_variants[phase] = ops.flash_launches_by_variant()
+        path_bwd_variants[phase] = ops.flash_bwd_launches_by_variant()
         peak_bytes = torch.cuda.max_memory_allocated()
         per_step = train_launches(tcfg)
-        want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
-        path_want["train"] = by_kernel(want, "sm90_wgmma")
+        want = {k: steps * n for k, n in per_step.items()}
+        fwd_kind = expected_variant(tcfg.torch_dtype, tcfg.hd)
+        bwd_kind = expected_variant(tcfg.torch_dtype, tcfg.hd, backward=True)
+        path_want[phase] = by_kernel(want, fwd_kind, bwd_kind)
         if counts != want:
-            fail(f"train: {TRAIN_STEPS} steps launched {counts}, expected {want}")
-        if path_variants["train"]["sm90_wgmma"] != TRAIN_STEPS * L_:
-            fail(f"train: flash forward launches by variant {path_variants['train']}: "
-                 "all must be the wgmma kernel")
-        if path_bwd_variants["train"]["sm90_wgmma"] != TRAIN_STEPS * L_:
-            fail(f"train: flash backward launches by variant {path_bwd_variants['train']}")
+            fail(f"{phase}: {steps} steps launched {counts}, expected {want}")
+        for name, got, kind, n in (
+                ("forward", path_variants[phase], fwd_kind, want["flash_attention"]),
+                ("backward", path_bwd_variants[phase], bwd_kind, want["flash_attention_bwd"])):
+            if got != {v: n if v == kind else 0 for v in got}:
+                fail(f"{phase}: flash {name} launches by variant {got}: all {n} must be "
+                     f"{kind!r}")
         losses = [h["loss"] for h in hist]
-        if [h["step"] for h in hist] != list(range(TRAIN_STEPS)) or not all(
+        if [h["step"] for h in hist] != list(range(steps)) or not all(
                 math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
-            fail(f"train: losses or grad norms missing or not finite: {hist}")
+            fail(f"{phase}: losses or grad norms missing or not finite: {hist}")
         # at init the logits of the random tied unembedding (N(0, 0.02^2) entries)
-        # against RMS-normalised hidden states are ~N(0, d * 0.02^2), so the
-        # log-sum-exp over the vocabulary, and the loss, sit at ln V + d * 0.02^2 / 2
+        # against RMS-normalised hidden states (the final norm's weight at 1) are
+        # ~N(0, d * 0.02^2), so the log-sum-exp over the vocabulary, and the loss,
+        # sit at ln V + d * 0.02^2 / 2
         loss0_expected = math.log(tcfg.vocab) + tcfg.d_model * 0.02 ** 2 / 2
         if not abs(losses[0] - loss0_expected) <= 0.5:
-            fail(f"train: step-0 loss {losses[0]:.4f} is not within 0.5 of "
+            fail(f"{phase}: step-0 loss {losses[0]:.4f} is not within 0.5 of "
                  f"{loss0_expected:.4f}")
         walls = [h["wall"] for h in hist]
-        step_ms = (walls[-1] - walls[0]) * 1e3 / (TRAIN_STEPS - 1)   # steps 2..6
+        step_ms = (walls[-1] - walls[0]) * 1e3 / (steps - 1)   # steps 2..steps
         tokens = B_TRAIN * S_TRAIN
-        attn_flops = 12.0 * tcfg.hd * visible_pairs(S_TRAIN, S_TRAIN, tcfg.causal, 0) \
-            * B_TRAIN * tcfg.n_heads * L_
-        model_flops = 6.0 * n_params * tokens + attn_flops
-        report["train"] = {
-            "phase": "train", "config": tcfg.name, "dtype": tcfg.dtype,
-            "layers": L_, "layers_published": get_config("qwen2_7b").n_layers,
-            "d_model": tcfg.d_model, "n_params": n_params,
-            "global_batch": B_TRAIN, "seq_len": S_TRAIN, "steps": TRAIN_STEPS,
+        # 6 operations per parameter and token at each occurrence, and attention's
+        # 12 * hd per visible (query, key) pair (forward 4, backward 8) at each
+        # attention occurrence; the chunkwise SSD's products with no parameter in them
+        # are left out
+        n_attn = sum(tcfg.block_kind(i) in ("attn", "shared_attn") for i in range(L_))
+        attn_flops = 12.0 * tcfg.hd * visible_pairs(
+            S_TRAIN, S_TRAIN, tcfg.causal, tcfg.attn_window) * B_TRAIN * tcfg.n_heads * n_attn
+        model_flops = 6.0 * flop_params * tokens + attn_flops
+        out = {
+            "phase": phase, "config": tcfg.name, "dtype": tcfg.dtype,
+            "layers": L_, "layers_published": get_config(tcfg.name).n_layers,
+            "d_model": tcfg.d_model, "head_dim": tcfg.hd, "n_params": n_params,
+            "flop_params": flop_params,
+            "global_batch": B_TRAIN, "seq_len": S_TRAIN, "steps": steps,
             "remat": "none", "init_s": round(init_s, 2),
             "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
             "lrs": [h["lr"] for h in hist],
@@ -1388,12 +1514,25 @@ def run(args, torch) -> None:
             "mfu": model_flops / (step_ms * 1e-3) / PEAK_TENSOR_16BIT_FLOPS,
             "peak_memory_bytes": peak_bytes,
             "launches": counts, "launches_per_step": per_step,
-            "flash_launches_by_variant": path_variants["train"],
-            "flash_bwd_launches_by_variant": path_bwd_variants["train"]}
-        emit(with_clocks(report["train"], start))
-        stop_if_failed("train")
+            "flash_launches_by_variant": path_variants[phase],
+            "flash_bwd_launches_by_variant": path_bwd_variants[phase]}
+        emit(with_clocks(out, start))
+        stop_if_failed(phase)
         del trainer, state
         torch.cuda.empty_cache()
+        return out
+
+    if not args.skip_train:
+        # qwen2-7b at 8 of 28 layers: at 12 bytes a parameter (bf16 parameters and
+        # gradients, fp32 moments) the full depth's 7.07 G would need 85 GB
+        report["train"] = train_phase("train", dataclasses.replace(cfg, n_layers=TRAIN_LAYERS),
+                                      steps=6)
+        # zamba2-2.7b at 6 of 54 layers, two cycles of (mamba, mamba, shared_attn): 4
+        # Mamba2 layers and 2 occurrences of the shared block, whose attention is
+        # head_dim 80 on both flash directions
+        report["train_zamba"] = train_phase(
+            "train_zamba", dataclasses.replace(get_config("zamba2_2p7b"),
+                                               n_layers=ZAMBA_TRAIN_LAYERS), steps=4)
 
     # ------------------------------- serve_moe, serve_vlm, serve_audio, serve_gemma
     # The other families at full width and depth, each freed before the next
@@ -1411,23 +1550,27 @@ def run(args, torch) -> None:
         print("chip_smoke: --skip-serve / --skip-train: a main path was not driven, so "
               "no result is printed", file=sys.stderr)
         sys.exit(4)
-    forward_variant = {name: kind for kind, name in FLASH_VARIANT_KERNELS.items()}
+    # a flash entry's launches are those of its variant, forward or backward (a serve
+    # path runs no backward)
+    variant_of = {name: (kind, path_variants) for kind, name in FLASH_VARIANT_KERNELS.items()}
+    variant_of.update({name: (kind, path_bwd_variants)
+                       for kind, name in FLASH_BWD_VARIANT_KERNELS.items()})
     for name, kern in kernels.items():
-        kind = forward_variant.get(name)   # a flash forward: its variant's launches
-        kern["launches_by_path"] = {path: path_variants[path][kind] if kind else c[name]
-                                    for path, c in path_counts.items()}
+        kind, by_path = variant_of.get(name, (None, None))
+        kern["launches_by_path"] = {
+            path: (by_path[path][kind] if path in by_path else 0) if kind else c[name]
+            for path, c in path_counts.items()}
         kern["launches"] = sum(kern["launches_by_path"].values())
         for path, want in path_want.items():   # the kernels each path's code runs
             if want[name] and kern["launches_by_path"][path] == 0:
                 fail(f"kernel {name} was not launched on the {path} path")
         if kind:
-            kern["launches_by_variant"] = dict(path_variants)
-    kernels["flash_attention_bwd"]["launches_by_variant"] = path_bwd_variants["train"]
+            kern["launches_by_variant"] = dict(by_path)
     stop_if_failed("verdict")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype", "tol")
     keys += ("variant", "launches_by_path", "launches_by_variant", "head_dim_256",
-             "window_bites")
+             "head_dim_80")
     kernels_line = {"kernels": [{key: kern[key] for key in keys if key in kern}
                                 for kern in kernels.values()]}
     final = {"ok": True, "device": {"platform": "gpu",

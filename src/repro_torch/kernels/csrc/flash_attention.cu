@@ -11,10 +11,10 @@
 //
 // The C entry point below picks one of three kernels by type and head_dim (the
 // rule is flash::variant_for in flash_attention.cuh; it is a split by shape, not a
-// fallback): bf16/fp16 at head_dim 64, 128 and 256 -- the serving paths' shapes --
-// take the TMA + wgmma kernel of flash_attention_sm90.cu; bf16/fp16 at head_dim 16,
-// 32 and 80 (zamba2's shared attention) the mma.sync kernel of this file; float32
-// the scalar kernel of this file.
+// fallback): bf16/fp16 at head_dim 64, 80, 128 and 256 -- the serving and training
+// paths' shapes, zamba2's shared attention at 80 among them -- take the TMA + wgmma
+// kernel of flash_attention_sm90.cu; bf16/fp16 at head_dim 16 and 32 the mma.sync
+// kernel of this file; float32 the scalar kernel of this file.
 //
 // Bound on this card: operations.  At the prefill shape (S = 2048, hd = 128) the
 // kernel does ~S*hd/2 flops per byte of q/k/v/o it must move, well above the ~295
@@ -228,10 +228,8 @@ __global__ void __launch_bounds__(BM * 2) flash_fwd_mma_kernel(const Params p) {
   }
 }
 
-// Head_dim 80 needs (64 + 4 * 64) * 88 * 2 = 56,320 bytes: above the default 48 KB,
-// so the kernel is allowed more dynamic shared memory first (once).  Its row of 88
-// elements is 176 bytes, 44 words: the eight rows g of a fragment load start in banks
-// 12g mod 32, all distinct, and ldmatrix's eight 16-byte rows in distinct groups.
+// A tile needs (BM + 4 * BN) * (HD + 8) * 2 bytes; a kernel that needs more than the
+// default 48 KB is allowed more dynamic shared memory first (once).
 template <typename T, int HD, int BM, int BN>
 cudaError_t launch_mma(const Params& p, cudaStream_t st) {
   constexpr int smem = (BM + 4 * BN) * (HD + 8) * (int)sizeof(T);  // Q + 2 stages of K, V
@@ -251,7 +249,6 @@ int dispatch_mma(const Params& p, int hd, cudaStream_t st) {
   switch (hd) {
     case 16: return (int)launch_mma<T, 16, 64, 64>(p, st);
     case 32: return (int)launch_mma<T, 32, 64, 64>(p, st);
-    case 80: return (int)launch_mma<T, 80, 64, 64>(p, st);
     default: return -1;
   }
 }

@@ -72,13 +72,14 @@ __host__ __device__ inline int sq_pad(int sq) { return (sq + kSqPad - 1) / kSqPa
 enum Variant { kScalar = 0, kMmaSync = 1, kSm90Wgmma = 2 };
 
 // The head_dims compiled in, forward and backward, and the 16-bit ones the TMA +
-// wgmma kernels take: the forward at 64, 128 and 256, the backward at 64 and 128 (at
-// 256 it keeps the mma.sync kernels).  Head_dim 80 (zamba2's shared attention) has
-// the forward alone, on the mma.sync and scalar kernels: an 80-element 16-bit row is
-// 160 bytes, wider than one 128-byte swizzle atom of the wgmma kernels' tiles.
+// wgmma kernels take: the forward at 64, 80, 128 and 256, the backward at 64 and 128
+// (at 80 and 256 it keeps the mma.sync kernels).  Head_dim 80 (zamba2's shared
+// attention): its 160-byte 16-bit row is wider than one 128-byte swizzle atom, so
+// the wgmma forward cuts it into a 64-column box and a 16-column one under the
+// 32-byte swizzle (flash_attention_sm90.cu); the backward runs the mma.sync passes.
 constexpr int kHeadDims[] = {16, 32, 64, 80, 128, 256};
-constexpr int kBwdHeadDims[] = {16, 32, 64, 128, 256};
-constexpr int kSm90HeadDims[] = {64, 128, 256};
+constexpr int kBwdHeadDims[] = {16, 32, 64, 80, 128, 256};
+constexpr int kSm90HeadDims[] = {64, 80, 128, 256};
 constexpr int kSm90BwdHeadDims[] = {64, 128};
 
 template <int N>
@@ -90,8 +91,7 @@ inline bool one_of(const int (&set)[N], int hd) {
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The split by shape: 16-bit
 // inputs at the wgmma head_dims above take the TMA + wgmma kernel; the other 16-bit
-// head_dims the mma.sync kernel; float32 the scalar one.  -1: not compiled in (so
-// for the backward at head_dim 80).
+// head_dims the mma.sync kernel; float32 the scalar one.  -1: not compiled in.
 inline int variant_for(int hd, int dtype, bool backward) {
   if (!(backward ? one_of(kBwdHeadDims, hd) : one_of(kHeadDims, hd))) return -1;
   if (dtype == 0) return kScalar;

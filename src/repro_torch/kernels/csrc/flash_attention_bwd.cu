@@ -42,10 +42,19 @@
 // plain version, not for speed.
 //
 // The C entry point below picks the kernels by type and head_dim with the backward's
-// rule (flash::variant_for): 16-bit inputs at head_dim 64 and 128 -- the training
-// path's shapes -- take the one-pass TMA + wgmma kernel of flash_attention_bwd_sm90.cu
-// (dq summed by atomics); the other 16-bit head_dims (16, 32, 256) the mma.sync passes
-// of this file; float32 the scalar passes.  A split by shape, not a fallback.
+// rule (flash::variant_for): 16-bit inputs at head_dim 64 and 128 -- the dense
+// training path's shapes -- take the one-pass TMA + wgmma kernel of
+// flash_attention_bwd_sm90.cu (dq summed by atomics); the other 16-bit head_dims (16,
+// 32, 80 -- zamba2's shared attention -- and 256) the mma.sync passes of this file;
+// float32 the scalar passes.  A split by shape, not a fallback.
+//
+// Head_dim 80 takes the tiles of 16 and 32 (64 keys and 64 query rows in pass A, 64
+// rows and 64 keys in pass B): dk and dv of 16 keys hold 80 fp32 registers a thread,
+// dq 40.  Its rows are padded to 88 elements (176 bytes, 44 words: the eight rows g
+// of a fragment load start in banks 12g mod 32, all distinct, and ldmatrix's eight
+// 16-byte rows in distinct groups), so pass A needs 68,608 bytes of shared memory and
+// pass B 67,584: both opt in to more than the default 48 KB (allow_smem).  Its wgmma
+// redesign, on the forward's 64 + 16 column split, is still to do (ROADMAP K3).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -404,7 +413,7 @@ __global__ void __launch_bounds__(BM * 2) flash_bwd_dq_mma_kernel(const BwdParam
   }
 }
 
-// Tile shapes by head_dim (16, 32 and 256: 64 and 128 take the wgmma kernel): pass A
+// Tile shapes by head_dim (16, 32, 80 and 256: 64 and 128 take the wgmma kernel): pass A
 // (keys per block, query rows per step, warps per 16 keys), pass B (query rows per
 // block, keys per step).  Chosen so the accumulators
 // fit the register file: at head_dim 256 dk and dv of 16 keys would take 256 fp32
@@ -439,6 +448,7 @@ int dispatch_mma(const BwdParams& p, int hd, cudaStream_t st) {
   switch (hd) {
     case 16: return launch_mma<T, 16, 64, 64, 1, 64, 64>(p, st);
     case 32: return launch_mma<T, 32, 64, 64, 1, 64, 64>(p, st);
+    case 80: return launch_mma<T, 80, 64, 64, 1, 64, 64>(p, st);
     case 256: return launch_mma<T, 256, 64, 32, 2, 64, 32>(p, st);
     default: return -1;
   }
@@ -640,6 +650,7 @@ int dispatch_scalar(const BwdParams& p, int hd, cudaStream_t st) {
     case 16: return launch_scalar<16>(p, st);
     case 32: return launch_scalar<32>(p, st);
     case 64: return launch_scalar<64>(p, st);
+    case 80: return launch_scalar<80>(p, st);
     case 128: return launch_scalar<128>(p, st);
     case 256: return launch_scalar<256>(p, st);
     default: return -1;

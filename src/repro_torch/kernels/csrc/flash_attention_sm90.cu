@@ -1,5 +1,5 @@
 // Fused attention forward for Hopper (sm_90a): TMA + wgmma, warp-specialised.
-// 16-bit inputs (bf16, fp16) at head_dim 64, 128 and 256; plain C++ launcher called
+// 16-bit inputs (bf16, fp16) at head_dim 64, 80, 128 and 256; plain C++ launcher called
 // from repro_flash_attention_fwd (flash_attention.cu) through flash::launch_sm90.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel,
@@ -60,6 +60,32 @@
 //   * O takes 128 fp32 registers a consumer thread, so the producer gives up all it
 //     can (setmaxnreg.dec 24) and the consumers take 240; S (32), P (16) and O (128)
 //     fit beside each other, so the overlap of S_i with P_{i-1} V_{i-1} stays.
+// Head_dim 80 (zamba2-2.7b's shared attention, H = KV = 32, window 4096) keeps
+// head_dim 128's shape (two Q buffers, 128-key tiles, kQGroup grouping, the
+// S_i / P_{i-1} V_{i-1} overlap, setmaxnreg 40/232, two consumer warpgroups).  What
+// differs is the row: 80 16-bit values are 160 bytes, wider than the 128-byte swizzle
+// row the other head_dims' 64-column boxes fill, and 80 is not a multiple of 64.  So
+// a tile's head is cut into boxes of two kinds (Cfg<80>::kBoxes64 / kBoxes16):
+//   * columns 0-63 one 64-column box under the 128-byte swizzle, as at 64 and 128;
+//     columns 64-79 one 16-column box (32-byte rows) under the 32-byte swizzle,
+//     each box with its own tensor map (tm_* / tn_*) and wgmma descriptors of its
+//     layout type (8-row groups 1024 and 256 bytes apart);
+//   * S = Q K^T is five k16 steps: four over the 64-column boxes, one over the
+//     16-column boxes (a whole 32-byte row a step);
+//   * O += P V a k16 step is m64n64k16 over V's 64-column box into O's registers
+//     0-31 and m64n16k16 over its 16-column box into registers 32-39;
+//   * O takes 40 fp32 registers a thread and S 64; a Q tile and a 128-key K or V
+//     tile are 20 KB each, so the K/V ring has room for three stages (160 KB in all);
+//   * the products shrink with the head but the exponentials do not, so the softmax
+//     sets the pace: the two consumer warpgroups take turns at issuing their
+//     products (named barriers, Cfg<80>::kTurns), so that one's softmax runs beside
+//     the other's products.
+// Nothing is padded: the products do 80 columns' work.  tools/flash_hd80_variants.py
+// times this layout beside patched copies of it at zamba2's shapes (PERF.md): without
+// turns, with two stages, and head_dim 128's body over maps of 80 columns whose
+// second box TMA fills with zeros (1.6x the products); all three are slower.  A
+// steady kv step still takes ~3,000 SM cycles against 1,280 for its products at
+// peak, the softmax ~1,150-1,450 of them (tools/flash_fwd_phases.py --shape zamba2).
 // Measured at gemma's shape (tools/flash_fwd_phases.py, PERF.md): a steady kv step
 // takes ~3,200 SM cycles against 2,048 for its products at the tensor cores' peak,
 // and hardly less (~3,150) with the exponentials taken out, so the products, not
@@ -71,7 +97,8 @@
 // Not done yet (ROADMAP K2-fast): wider kv tiles for head_dim 64.
 // Letting the two consumer warpgroups take strict turns at the tensor cores
 // (named barriers) was measured and gained nothing at the prefill shape either.
-// A barrier wait that never completes traps after 4 s instead of hanging the card.
+// An mbarrier wait that never completes traps after 4 s instead of hanging the card
+// (head_dim 80's turns wait on named barriers, which have no such limit).
 // The PTX helpers, wgmma instructions and the tensor-map encoder are sm90.cuh's,
 // shared with the backward (flash_attention_bwd_sm90.cu).
 
@@ -87,21 +114,31 @@
 namespace flash {
 namespace {
 
-constexpr int kBM = 128;          // query rows per block (two consumer warpgroups)
-constexpr int kStages = 2;
-constexpr int kThreads = 384;     // producer + two consumer warpgroups
 constexpr int kQGroup = 8;        // neighbouring q tiles handed out together (H = KV)
+constexpr int kConsumers = 2;     // consumer warpgroups of 64 query rows each
 
-// What differs by head_dim: keys per K/V tile, Q buffers and the warpgroups' share
-// of the register file (head_dim 256: see the note at the top).
+// What differs by head_dim: keys per K/V tile, Q buffers, the warpgroups' share of
+// the register file (head_dim 256: see the note at the top), the K/V ring's stages,
+// whether the consumer warpgroups take turns at the tensor cores, and how a tile's
+// head is cut into TMA boxes: 64-column boxes under the 128-byte swizzle (kBoxes64),
+// then 16-column boxes under the 32-byte swizzle (kBoxes16: head_dim 80, see the
+// note).
 template <int HD>
 struct Cfg {
   static constexpr bool kWide = HD == 256;
+  static constexpr int kBM = 64 * kConsumers;            // query rows a block
+  static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer
   static constexpr int kBN = kWide ? 64 : 128;
   static constexpr int kQBufs = kWide ? 1 : 2;
   static constexpr int kProducerRegs = kWide ? 24 : 40;
   static constexpr int kConsumerRegs = kWide ? 240 : 232;
-  static_assert(kProducerRegs * 128 + kConsumerRegs * 256 <= 65536, "register file");
+  static constexpr int kStages = HD == 80 ? 3 : 2;   // of the K/V ring
+  static constexpr bool kTurns = HD == 80;
+  static constexpr int kBoxes64 = HD / kBoxCols;
+  static constexpr int kBoxes16 = HD % kBoxCols / kNarrowCols;
+  static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536,
+                "register file");
+  static_assert(kBoxes64 * kBoxCols + kBoxes16 * kNarrowCols == HD, "boxes cover the head");
 };
 
 // ----------------------------------------------------------------------- kernel
@@ -109,27 +146,40 @@ struct Cfg {
 template <int HD>
 struct Smem {
   static constexpr int kBN = Cfg<HD>::kBN;
-  static constexpr int kBoxes = HD / kBoxCols;
+  // byte offsets of a tile's boxes: the 64-column boxes (rows x 128 B each), then
+  // the 16-column ones (rows x 32 B); all on 1024-byte boundaries at these row counts
+  __host__ __device__ static constexpr uint32_t box64(int rows, int x) { return x * rows * 128; }
+  __host__ __device__ static constexpr uint32_t box16(int rows, int y) {
+    return Cfg<HD>::kBoxes64 * rows * 128 + y * rows * 32;
+  }
+  static constexpr int kBM = Cfg<HD>::kBM;
   static constexpr int kQBytes = kBM * HD * 2;
   static constexpr int kKVBytes = kBN * HD * 2;   // one K or one V tile
   static constexpr int kQ = 0;                    // Q tiles: with two, the next tile's
   static constexpr int kK = kQ + Cfg<HD>::kQBufs * kQBytes;  // lands while this one's runs
+  static constexpr int kStages = Cfg<HD>::kStages;
   static constexpr int kV = kK + kStages * kKVBytes;
   static constexpr int kBar = kV + kStages * kKVBytes;
-  // barriers: q_full[2], q_empty[2], k_full[2], v_full[2], k_empty[2], v_empty[2]
-  static constexpr int kBytes = kBar + 16 * 8;
+  // barriers: q_full[2], q_empty[2], then k_full, v_full, k_empty, v_empty of each stage
+  static constexpr int kBytes = kBar + (4 + 4 * kStages) * 8;
   static constexpr int kAlloc = kBytes + 1024;    // room to align the base to 1024
   static_assert(kAlloc <= 232448, "shared memory a block can use");
 };
 
+// tm_*: the maps of the 64-column boxes; tn_*: those of the 16-column boxes (only
+// where the head has them: head_dim 80)
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
-                          const __grid_constant__ CUtensorMap tm_v, const Params p) {
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tn_q,
+                          const __grid_constant__ CUtensorMap tn_k,
+                          const __grid_constant__ CUtensorMap tn_v, const Params p) {
   using S = Smem<HD>;
   using C = Cfg<HD>;
-  constexpr int kBN = C::kBN;
+  constexpr int kBN = C::kBN, kBM = C::kBM;
+  constexpr int kB64 = C::kBoxes64, kB16 = C::kBoxes16;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // every tile starts on a 1024-byte boundary: the swizzle pattern's period
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -137,10 +187,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto sQ = [&](int u) { return base + S::kQ + u * S::kQBytes; };
   auto q_full = [&](int u) { return bar + 8 * (0 + u); };
   auto q_empty = [&](int u) { return bar + 8 * (2 + u); };
+  constexpr int kStages = S::kStages;
   auto k_full = [&](int s) { return bar + 8 * (4 + s); };
-  auto v_full = [&](int s) { return bar + 8 * (6 + s); };
-  auto k_empty = [&](int s) { return bar + 8 * (8 + s); };
-  auto v_empty = [&](int s) { return bar + 8 * (10 + s); };
+  auto v_full = [&](int s) { return bar + 8 * (4 + kStages + s); };
+  auto k_empty = [&](int s) { return bar + 8 * (4 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bar + 8 * (4 + 3 * kStages + s); };
+  // K/V tile g of this block (counted across its work tiles) sits in stage
+  // stage(g), and its barriers' phase is phase(g)
+  auto stage = [&](int g) { return (int)((uint32_t)g % kStages); };
+  auto phase = [&](int g) { return ((uint32_t)g / kStages) & 1u; };
   auto sK = [&](int s) { return base + S::kK + s * S::kKVBytes; };
   auto sV = [&](int s) { return base + S::kV + s * S::kKVBytes; };
 
@@ -191,13 +246,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int u = 0; u < C::kQBufs; ++u) {
       mbar_init(q_full(u), 1);
-      mbar_init(q_empty(u), 8);  // one arrival per consumer warp
+      mbar_init(q_empty(u), 4 * kConsumers);  // one arrival per consumer warp
     }
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(k_empty(s), 8);
-      mbar_init(v_empty(s), 8);
+      mbar_init(k_empty(s), 4 * kConsumers);
+      mbar_init(v_empty(s), 4 * kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -208,10 +263,24 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs) : "memory");
     if (threadIdx.x == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_k))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_v))
-                   : "memory");
+      auto prefetch = [](const CUtensorMap* m) {
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m))
+                     : "memory");
+      };
+      prefetch(&tm_k), prefetch(&tm_v);
+      if constexpr (kB16 > 0) prefetch(&tn_k), prefetch(&tn_v);
+      // one tile of `rows` rows from row r0 of (head h, batch b) into dst: its
+      // 64-column boxes, then its 16-column ones, all completing on barrier `full`
+      auto load = [&](uint32_t dst, const CUtensorMap* wide, const CUtensorMap* narrow,
+                      uint32_t full, int rows, int r0, int h, int b) {
+#pragma unroll
+        for (int x = 0; x < kB64; ++x)
+          tma_load_4d(dst + S::box64(rows, x), wide, full, x * kBoxCols, r0, h, b);
+#pragma unroll
+        for (int y = 0; y < kB16; ++y)
+          tma_load_4d(dst + S::box16(rows, y), narrow, full, kB64 * kBoxCols + y * kNarrowCols,
+                      r0, h, b);
+      };
       // j: this block's work tiles so far; g: K/V tiles so far (the ring's
       // position and phase run on across work tiles)
       int g = 0;
@@ -221,23 +290,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         // each buffer's first work tile: a fresh barrier passes
         mbar_wait(q_empty(u), ((j / C::kQBufs) & 1) ^ 1);
         mbar_expect_tx(q_full(u), S::kQBytes);
-#pragma unroll
-        for (int x = 0; x < S::kBoxes; ++x)
-          tma_load_4d(sQ(u) + x * kBM * 128, &tm_q, q_full(u), x * kBoxCols, t.q0, t.h, t.b);
+        load(sQ(u), &tm_q, &tn_q, q_full(u), kBM, t.q0, t.h, t.b);
         for (int i = 0; i < t.n_tiles; ++i, ++g) {
-          const int s = g & 1;
-          const uint32_t parity = ((g >> 1) & 1) ^ 1;
+          const int s = stage(g);
+          const uint32_t parity = phase(g) ^ 1;
           const int n0 = t.kv_lo + i * kBN;
           mbar_wait(k_empty(s), parity);
           mbar_expect_tx(k_full(s), S::kKVBytes);
-#pragma unroll
-          for (int x = 0; x < S::kBoxes; ++x)
-            tma_load_4d(sK(s) + x * kBN * 128, &tm_k, k_full(s), x * kBoxCols, n0, t.kvh, t.b);
+          load(sK(s), &tm_k, &tn_k, k_full(s), kBN, n0, t.kvh, t.b);
           mbar_wait(v_empty(s), parity);
           mbar_expect_tx(v_full(s), S::kKVBytes);
-#pragma unroll
-          for (int x = 0; x < S::kBoxes; ++x)
-            tma_load_4d(sV(s) + x * kBN * 128, &tm_v, v_full(s), x * kBoxCols, n0, t.kvh, t.b);
+          load(sV(s), &tm_v, &tn_v, v_full(s), kBN, n0, t.kvh, t.b);
         }
       }
     }
@@ -245,6 +308,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ----------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs) : "memory");
     const int c = wg - 1;                     // which 64 rows of the tile
+    // With C::kTurns the two consumer warpgroups take turns at issuing their
+    // products (named barriers 1 and 2 of 256 threads: each waits on its own and
+    // passes to the other's), so that one's softmax runs beside the other's products.
+    // The first turn is warpgroup 0's: warpgroup 1 opens it.  Both warpgroups must
+    // make the same number of turns in every work tile (one a K/V tile: tw.n_tiles is
+    // the block's), or one waits for ever: these barriers, unlike the mbarriers, have
+    // no time limit.
+    auto turn_wait = [&] {
+      if constexpr (C::kTurns) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+    };
+    auto turn_pass = [&] {
+      if constexpr (C::kTurns) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory");
+    };
+    if constexpr (C::kTurns)
+      if (c == 1) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
     const int t = threadIdx.x & 127;
     const int warp = t >> 5, lane = t & 31;
     const int g = lane >> 2, tq = lane & 3;
@@ -266,25 +344,47 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[kBN / 16][4];  // P of the previous tile, the A operand of its P V
 
     // S = Q K^T for the tile in stage s: 64 rows x kBN keys, K-major A and B,
-    // 32 bytes a k16 step, each further 64 columns of the head in the next box
+    // 32 bytes a k16 step: four steps in each 64-column box, then one in each
+    // 16-column box (its whole 32-byte row; 8-row groups 256 bytes apart)
     auto issue_qk = [&](int s) {
       const uint64_t qd = opaque(smem_desc(q_tile + c * 64 * 128, 16, 1024));
       const uint64_t kd = opaque(smem_desc(sK(s), 16, 1024));
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < 4 * kB64; ++kk) {
         const uint32_t box = (kk >> 2) * 128, in = (kk & 3) * 32;  // bytes; >> 4 below
-        Wg<T>::template ss<kBN>(sc, qd + ((box * kBM + in) >> 4), kd + ((box * kBN + in) >> 4),
-                                kk > 0);
+        Wg<T>::template ss<kBN>(sc, qd + ((box * kBM + in) >> 4),
+                                kd + ((box * kBN + in) >> 4), kk > 0);
+      }
+      if constexpr (kB16 > 0) {
+        const uint64_t qd =
+            opaque(smem_desc(q_tile + S::box16(kBM, 0) + c * 64 * 32, 16, 256, kSwizzle32B));
+        const uint64_t kd = opaque(smem_desc(sK(s) + S::box16(kBN, 0), 16, 256, kSwizzle32B));
+#pragma unroll
+        for (int y = 0; y < kB16; ++y)
+          Wg<T>::template ss<kBN>(sc, qd + ((y * kBM * 32) >> 4), kd + ((y * kBN * 32) >> 4), 1);
       }
       wgmma_commit();
     };
     // O += P V for the tile in stage s: V is MN-major, 16 keys are two 8-row
     // groups (SBO 1024), the second 64 columns of a 128-wide slice the next box
     // (LBO); head_dim 256 as two 128-wide slices, each its own product into its
-    // half of O (columns 128h.. are O's registers 64h..)
+    // half of O (columns 128h.. are O's registers 64h..); head_dim 80 as the
+    // note at the top says
     auto issue_pv = [&](int s) {
       const uint64_t vd = opaque(smem_desc(sV(s), kBN * 128, 1024));
-      if constexpr (HD <= 128) {
+      if constexpr (HD == 80) {
+        // columns 0-63 (O's registers 0-31) from the 64-column box, 64-79
+        // (registers 32-39) from the 16-column box
+        const uint64_t vn =
+            opaque(smem_desc(sV(s) + S::box16(kBN, 0), kBN * 32, 256, kSwizzle32B));
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          Wg<T>::template rs<64>(*reinterpret_cast<float(*)[32]>(o), pa[kk],
+                                 vd + ((kk * 16 * 128) >> 4), 1);
+          Wg<T>::template rs<16>(*reinterpret_cast<float(*)[8]>(o + 32), pa[kk],
+                                 vn + ((kk * 16 * 32) >> 4), 1);
+        }
+      } else if constexpr (HD <= 128) {
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk)
           Wg<T>::template rs<HD>(o, pa[kk], vd + ((kk * 16 * 128) >> 4), 1);
@@ -409,36 +509,40 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(q_full(u), (j / C::kQBufs) & 1);
       if (tw.n_tiles > 0) {
         float alpha[2];
-        mbar_wait(k_full(gt & 1), (gt >> 1) & 1);
+        mbar_wait(k_full(stage(gt)), phase(gt));
         wgmma_fence();
-        issue_qk(gt & 1);
+        turn_wait();
+        issue_qk(stage(gt));
+        turn_pass();
         wgmma_wait0();
         pin(sc);
-        mbar_arrive_if(k_empty(gt & 1), lane == 0);
+        mbar_arrive_if(k_empty(stage(gt)), lane == 0);
         softmax(tw.kv_lo, alpha);
         rescale_and_pack(alpha);
         for (int i = 1; i < tw.n_tiles; ++i) {
-          const int gi = gt + i, s = gi & 1;
-          mbar_wait(k_full(s), (gi >> 1) & 1);
+          const int gi = gt + i, s = stage(gi), sp = stage(gi - 1);
+          mbar_wait(k_full(s), phase(gi));
           wgmma_fence();  // sc, o and pa were last touched by ordinary instructions
+          turn_wait();
           issue_qk(s);
-          mbar_wait(v_full(s ^ 1), ((gi - 1) >> 1) & 1);
-          issue_pv(s ^ 1);
+          mbar_wait(v_full(sp), phase(gi - 1));
+          issue_pv(sp);
+          turn_pass();
           asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // S_i only
           pin(sc);
           mbar_arrive_if(k_empty(s), lane == 0);
           softmax(tw.kv_lo + i * kBN, alpha);
           wgmma_wait0();  // P_{i-1} V_{i-1} is in O: only now may O be rescaled
-          pv_done(s ^ 1);
+          pv_done(sp);
           rescale_and_pack(alpha);
         }
         mbar_arrive_if(q_empty(u), lane == 0);  // Q is read by the S products only
         const int last = gt + tw.n_tiles - 1;
-        mbar_wait(v_full(last & 1), (last >> 1) & 1);
+        mbar_wait(v_full(stage(last)), phase(last));
         wgmma_fence();
-        issue_pv(last & 1);
+        issue_pv(stage(last));
         wgmma_wait0();
-        pv_done(last & 1);
+        pv_done(stage(last));
         gt += tw.n_tiles;
       } else {
         mbar_arrive_if(q_empty(u), lane == 0);
@@ -475,11 +579,20 @@ template <typename T, int HD>
 int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -4;
-  CUtensorMap tq, tk, tv;
-  constexpr int kBN = Cfg<HD>::kBN;
+  // the 64-column boxes' maps and the 16-column boxes' (zeros where a head has none
+  // of that kind: the kernel never reads them)
+  CUtensorMap tq{}, tk{}, tv{}, nq{}, nk{}, nv{};
+  constexpr int kBN = Cfg<HD>::kBN, kBM = Cfg<HD>::kBM;
   if (!encode(fn, &tq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM) ||
       !encode(fn, &tk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
       !encode(fn, &tv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN))
+    return -3;
+  constexpr int n16 = kNarrowCols;
+  constexpr CUtensorMapSwizzle sw32 = CU_TENSOR_MAP_SWIZZLE_32B;
+  if (Cfg<HD>::kBoxes16 > 0 &&
+      (!encode(fn, &nq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM, n16, sw32) ||
+       !encode(fn, &nk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN, n16, sw32) ||
+       !encode(fn, &nv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN, n16, sw32)))
     return -3;
   auto kern = flash_fwd_sm90_kernel<T, HD>;
   constexpr int smem = Smem<HD>::kAlloc;
@@ -494,7 +607,7 @@ int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
   if (e != cudaSuccess) return (int)e;
   const long long work = (long long)((p.Sq + kBM - 1) / kBM) * p.H * p.B;
   const int blocks = (int)(work < sms ? work : sms);  // one block per SM walks the work tiles
-  kern<<<blocks, kThreads, smem, st>>>(tq, tk, tv, p);
+  kern<<<blocks, Cfg<HD>::kThreads, smem, st>>>(tq, tk, tv, nq, nk, nv, p);
   return (int)cudaGetLastError();
 }
 
@@ -503,10 +616,12 @@ int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
 int launch_sm90(const Params& p, int hd, int dtype, cudaStream_t st) {
   if (dtype == 1) {
     if (hd == 64) return launch<__nv_bfloat16, 64>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+    if (hd == 80) return launch<__nv_bfloat16, 80>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 128) return launch<__nv_bfloat16, 128>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 256) return launch<__nv_bfloat16, 256>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   } else if (dtype == 2) {
     if (hd == 64) return launch<__half, 64>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
+    if (hd == 80) return launch<__half, 80>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 128) return launch<__half, 128>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 256) return launch<__half, 256>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
   }

@@ -8,11 +8,11 @@
 // a tile shape.
 //
 // What is here: shared-memory addresses, mbarriers (every wait traps after 4 s
-// instead of hanging the card), 4-D TMA tile loads and a 1-D bulk copy, the
-// 128-byte-swizzle wgmma descriptor, the wgmma instructions (m64nNk16, fp32
-// accumulator; A and B from shared memory, either operand K-major or MN-major; or
-// A from registers with B MN-major) and the host's tensor-map encoder, looked up
-// through the runtime (no -lcuda).
+// instead of hanging the card), 4-D TMA tile loads and a 1-D bulk copy, the wgmma
+// descriptor (128-byte swizzle, or 32-byte swizzle for 16-column boxes: head_dim
+// 80), the wgmma instructions (m64nNk16, fp32 accumulator; A and B from shared
+// memory, either operand K-major or MN-major; or A from registers with B MN-major)
+// and the host's tensor-map encoder, looked up through the runtime (no -lcuda).
 
 #pragma once
 
@@ -26,6 +26,9 @@ namespace flash {
 namespace {
 
 constexpr int kBoxCols = 64;      // 128 bytes of 16-bit values: one swizzle row
+constexpr int kNarrowCols = 16;   // 32 bytes: one row of the 32-byte swizzle
+// wgmma descriptors' layout types: the swizzle the tile was stored with
+constexpr int kSwizzle128B = 1, kSwizzle32B = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------------ PTX helpers
@@ -96,14 +99,19 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// Shared-memory matrix descriptor, 128-byte swizzle.  Offsets in bytes.  K-major
-// operands: LBO unused, SBO the stride of 8-row groups.  MN-major operands: LBO the
-// stride of 64-element swizzle boxes along M or N, SBO that of 8-row groups along K.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1) unless told
+// otherwise.  Offsets in bytes.  K-major operands: LBO unused, SBO the stride of
+// 8-row groups (8 x 128 B; 8 x 32 B = 256 under the 32-byte swizzle, type 3).
+// MN-major operands: LBO the stride of swizzle boxes along M or N (64 elements a
+// box; 16 under the 32-byte swizzle), SBO that of 8-row groups along K.  Every box
+// starts on a multiple of its swizzle's period (1024 or 256 bytes), so the
+// descriptor's base offset stays 0.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout = kSwizzle128B) {
   uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
   d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
   d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
-  d |= 1ull << 62;
+  d |= (uint64_t)layout << 62;
   return d;
 }
 
@@ -153,6 +161,7 @@ __device__ __forceinline__ float ex2(float x) {
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define D32 D8(0), D8(8), D8(16), D8(24)
 #define D64 D32, D8(32), D8(40), D8(48), D8(56)
+#define R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define R32                                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -181,6 +190,14 @@ __device__ __forceinline__ float ex2(float x) {
                  : D64                                                                      \
                  : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));                           \
   }                                                                                         \
+  __device__ __forceinline__ void rs_n16_##TAG(float (&d)[8], const uint32_t (&a)[4],       \
+                                               uint64_t db, int acc) {                      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                             \
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " " R8             \
+                 ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"                            \
+                 : D8(0)                                                                    \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));         \
+  }                                                                                         \
   __device__ __forceinline__ void rs_n64_##TAG(float (&d)[32], const uint32_t (&a)[4],      \
                                                uint64_t db, int acc) {                      \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                             \
@@ -204,6 +221,7 @@ DEFINE_WGMMA(f16, "f16")
 #undef DEFINE_WGMMA
 #undef R64
 #undef R32
+#undef R8
 #undef D64
 #undef D32
 #undef D8
@@ -223,7 +241,9 @@ template <> struct Wg<__nv_bfloat16> {
   template <int N>
   static __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                             int acc) {
-    if constexpr (N == 64) rs_n64_bf16(d, a, db, acc); else rs_n128_bf16(d, a, db, acc);
+    if constexpr (N == 16) rs_n16_bf16(d, a, db, acc);
+    else if constexpr (N == 64) rs_n64_bf16(d, a, db, acc);
+    else rs_n128_bf16(d, a, db, acc);
   }
 };
 
@@ -240,7 +260,9 @@ template <> struct Wg<__half> {
   template <int N>
   static __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                             int acc) {
-    if constexpr (N == 64) rs_n64_f16(d, a, db, acc); else rs_n128_f16(d, a, db, acc);
+    if constexpr (N == 16) rs_n16_f16(d, a, db, acc);
+    else if constexpr (N == 64) rs_n64_f16(d, a, db, acc);
+    else rs_n128_f16(d, a, db, acc);
   }
 };
 
@@ -270,10 +292,12 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map over (hd, seq, heads, batch) of a 16-bit tensor with element strides
-// (ss, sh, sb), boxes of 64 columns x `rows` rows of one head, 128-byte swizzle.
-// Rows past `seq` read as zeros.
+// (ss, sh, sb), boxes of `cols` columns x `rows` rows of one head: 64 columns under
+// the 128-byte swizzle, or 16 (head_dim 80's last box) under the 32-byte one.  Rows
+// past `seq` read as zeros.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int hd,
-            int seq, int heads, int batch, long long ss, long long sh, long long sb, int rows) {
+            int seq, int heads, int batch, long long ss, long long sh, long long sb, int rows,
+            int cols = kBoxCols, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)seq, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   // a dimension of extent 1 is never stepped over: give it a stride TMA accepts
@@ -281,10 +305,10 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataTy
   const long long st[3] = {seq > 1 ? ss : kAny, heads > 1 ? sh : kAny, batch > 1 ? sb : kAny};
   const cuuint64_t strides[3] = {(cuuint64_t)st[0] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[2] * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

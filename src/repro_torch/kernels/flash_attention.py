@@ -10,11 +10,11 @@ dq); on the CPU both are the plain versions of ``ref``.  A call without
 gradients (serving) launches the forward kernel alone and writes no ``lse``.
 
 Which kernel a CUDA call launches is the library's own rule (``variant``,
-``bwd_variant``): 16-bit inputs take the TMA + wgmma kernels at head_dim 64, 128
-and 256 forward and at 64 and 128 backward, the mma.sync kernels at the other
-head_dims; float32 the scalar kernels.  Head_dim 80 runs forward only: a CUDA call
-that needs its gradient raises.  A variant that cannot run (a tensor map
-that cannot be encoded, a refused launch) raises; no other variant stands in for it.
+``bwd_variant``): 16-bit inputs take the TMA + wgmma kernels at head_dim 64, 80,
+128 and 256 forward and at 64 and 128 backward, the mma.sync kernels at the other
+head_dims; float32 the scalar kernels.  A head_dim compiled into neither direction
+raises.  A variant that cannot run (a tensor map that cannot be encoded, a refused
+launch) raises; no other variant stands in for it.
 """
 
 from __future__ import annotations
@@ -27,10 +27,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (flash_attention_bwd_reference,
                                      flash_attention_lse_reference, mha_reference)
 
-#: head_dims compiled in (``kHeadDims`` / ``kBwdHeadDims`` of ``csrc/flash_attention.cuh``):
-#: 80 (zamba2's shared attention) has no backward kernel
+#: head_dims compiled in (``kHeadDims`` / ``kBwdHeadDims`` of ``csrc/flash_attention.cuh``)
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: the C interface's codes 0, 1, 2, forward and backward
 VARIANTS = ("scalar", "mma_sync", "sm90_wgmma")
 #: the wgmma backward pads its per-row scratch to a multiple of this many query rows
@@ -147,9 +146,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
     if grad:
-        if hd not in BWD_HEAD_DIMS:
-            raise ValueError(f"flash_attention: head_dim {hd} has no backward kernel "
-                             f"(have {BWD_HEAD_DIMS}); call it without gradients")
         return FlashAttention.apply(q, k, v, causal, window, softcap)
     return launch_forward(q, k, v, causal, window, softcap, with_lse=False)[0]
 

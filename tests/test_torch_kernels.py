@@ -65,13 +65,17 @@ HD256_PALLAS_CASES = [
 ]
 HD256_RAGGED_CASES = [(1, 100, 170, 2, 2, 256, True, 0)]
 # head_dim 80 (zamba2's shared attention: H = KV, causal, a sliding window; the
-# mma.sync kernel's 64-row q tiles and 64-key kv tiles): causal, a window across
-# the Pallas test's 32-key blocks, and a window with fewer queries than keys.
+# wgmma forward's 64- and 16-column boxes, the mma.sync backward's 64-row and 64-key
+# tiles): causal, a window across the Pallas test's 32-key blocks, and a window with
+# fewer queries than keys.
 HD80_PALLAS_CASES = [
     (2, 128, 128, 4, 4, 80, True, 0),
     (1, 160, 160, 2, 2, 80, True, 48),
     (1, 64, 192, 4, 4, 80, True, 64),
 ]
+# head_dim 80 at a ragged Sq < Skv with GQA and a window (the backward's ragged tiles;
+# for the plain reference and the Pallas kernel's VJP rule alone)
+HD80_RAGGED_CASES = [(1, 100, 170, 4, 2, 80, True, 48)]
 # The reference's shapes, then the RMSNorm forward's kernel edges: 1024 (the widest
 # row a lane group takes), 1032 (the narrowest the row pipeline takes), gemma's
 # 3072 and granite's 6144, an odd row count, a width that is not a multiple of 8.
@@ -106,7 +110,7 @@ def test_mha_reference_matches_pallas_kernel(case):
 
 
 ORACLE_CASES = (CASES + TILE_EDGE_CASES + PALLAS_TILE_CASES + HD256_PALLAS_CASES
-                + HD256_RAGGED_CASES + HD80_PALLAS_CASES)
+                + HD256_RAGGED_CASES + HD80_PALLAS_CASES + HD80_RAGGED_CASES)
 
 
 @pytest.mark.parametrize("case", ORACLE_CASES, ids=[str(c) for c in ORACLE_CASES])
@@ -377,7 +381,8 @@ BWD_EDGE_CASES = [
     (2, 260, 260, 8, 2, 64, True, 150),
 ]
 BWD_CASES = (CASES + [(1, 64, 64, 2, 2, 32, True, 0, 20.0), (1, 96, 128, 4, 2, 32, True, 0, 20.0)]
-             + TILE_EDGE_CASES + BWD_EDGE_CASES + HD256_PALLAS_CASES + HD256_RAGGED_CASES)
+             + TILE_EDGE_CASES + BWD_EDGE_CASES + HD256_PALLAS_CASES + HD256_RAGGED_CASES
+             + HD80_PALLAS_CASES + HD80_RAGGED_CASES)
 
 
 def _case_kw(case):
@@ -578,9 +583,10 @@ def _compiled_head_dims(source: str, function: str, pattern: str) -> set:
 def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
     """``flash::variant_for`` in ``flash_attention.cuh``, read from the source: 16-bit
     head_dim 256 takes the TMA + wgmma kernel (kSm90Wgmma) forward and the mma.sync
-    kernels backward; head_dim 80 the mma.sync (16-bit) and scalar (fp32) kernels
-    forward and none backward; every head_dim the rule sends to a kernel is compiled
-    into that kernel's dispatch, forward and backward; no library is loaded."""
+    kernels backward, and so does 16-bit head_dim 80; fp32 the scalar kernels both
+    ways; every head_dim the rule sends to a kernel is compiled into that kernel's
+    dispatch, forward and backward, and no head_dim 80 call is refused; no library is
+    loaded."""
     header = (CSRC / "flash_attention.cuh").read_text()
     enum = dict((name, int(code)) for name, code in
                 re.findall(r"(k\w+) = (\d+)", re.search(r"enum Variant \{([^}]*)\}",
@@ -612,10 +618,15 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
         assert flash_mod.VARIANTS[rule(256, dtype, False)] == "sm90_wgmma"
         assert flash_mod.VARIANTS[rule(256, dtype, True)] == "mma_sync"
         assert flash_mod.VARIANTS[rule(128, dtype, True)] == "sm90_wgmma"
-        assert flash_mod.VARIANTS[rule(80, dtype, False)] == "mma_sync"
-    assert flash_mod.VARIANTS[rule(256, 0, False)] == "scalar"
-    assert flash_mod.VARIANTS[rule(80, 0, False)] == "scalar"
-    assert all(rule(80, dtype, True) == -1 for dtype in (0, 1, 2))
+        assert flash_mod.VARIANTS[rule(80, dtype, False)] == "sm90_wgmma"
+        assert flash_mod.VARIANTS[rule(80, dtype, True)] == "mma_sync"
+    for backward in (False, True):
+        assert flash_mod.VARIANTS[rule(256, 0, backward)] == "scalar"
+        assert flash_mod.VARIANTS[rule(80, 0, backward)] == "scalar"
+    assert all(rule(80, dtype, backward) != -1 for dtype in (0, 1, 2)
+               for backward in (False, True))
+    assert all(rule(96, dtype, backward) == -1 for dtype in (0, 1, 2)
+               for backward in (False, True))
     # the C entries ask for the forward's and the backward's rule
     assert "flash::variant_for(hd, dtype, false)" in (CSRC / "flash_attention.cu").read_text()
     assert "flash::variant_for(c->hd, c->dtype, true)" in \

@@ -39,6 +39,7 @@ Tolerances, with their reasons:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -522,9 +523,13 @@ def _jax_loss_grads_and_step(jcfg, pnp, batch, dtype):
     return (float(loss), *jax.tree.map(np.asarray, (grads, state, new, met)))
 
 
-@pytest.fixture(scope="module")
-def grads_pair():
-    jcfg = jax_config(ARCH).reduced()
+@functools.lru_cache(maxsize=None)
+def _grads_pair(head_dim: int = 0):
+    """Both models on the same weights and batch, the reduced config at its own
+    head_dim (0) or at ``head_dim``: JAX's loss, gradients and train step in float32
+    and float64, and the port's float64 loss and gradients."""
+    over = {"head_dim": head_dim} if head_dim else {}
+    jcfg = jax_config(ARCH).reduced(**over)
     rng = np.random.default_rng(11)
     pnp = _numpy_tree(jax.jit(JaxLM(jcfg).init)(jax.random.PRNGKey(2)), rng)
     tokens = rng.integers(0, jcfg.vocab, (B, LONG), dtype=np.int32)
@@ -535,16 +540,22 @@ def grads_pair():
     with jax.enable_x64(True):
         jl, jg, start, jnew, jmet = _jax_loss_grads_and_step(_f64(jcfg), pnp, batch,
                                                              jnp.float64)
-    tm32 = convert.load_jax_params(LM(get_config(ARCH).reduced(), device="cpu"), pnp)
+    tm32 = convert.load_jax_params(LM(get_config(ARCH).reduced(**over), device="cpu"), pnp)
     with torch.no_grad():
         loss32 = float(tm32.loss(torch.from_numpy(tokens), torch.from_numpy(labels)))
-    tm = convert.load_jax_params(LM(_f64(get_config(ARCH).reduced()), device="cpu"), pnp)
+    tm = convert.load_jax_params(LM(_f64(get_config(ARCH).reduced(**over)), device="cpu"),
+                                 pnp)
     loss = tm.loss(torch.from_numpy(tokens), torch.from_numpy(labels))
     names = [n for n, _ in tm.named_parameters()]
     grads = torch.autograd.grad(loss, [p for _, p in tm.named_parameters()])
     return dict(jcfg=jcfg, pnp=pnp, batch=batch, tm=tm, jloss=jl, jloss32=jl32, jgrads=jg,
                 jgrads32=jg32, start=start, jnew=jnew, jmet=jmet, j32=j32, jmet32=jmet32,
                 loss=float(loss), loss32=loss32, grads=dict(zip(names, grads)))
+
+
+@pytest.fixture(scope="module")
+def grads_pair():
+    return _grads_pair()
 
 
 def test_loss_matches_reference(grads_pair):
@@ -563,12 +574,15 @@ def test_every_gradient_matches_reference(grads_pair):
         assert float(np.abs(got[path]).max()) > 0, path
 
 
-def test_train_step_matches_reference(grads_pair):
+@pytest.mark.parametrize("head_dim", [0, 80], ids=["reduced", "head_dim80"])
+def test_train_step_matches_reference(head_dim):
     """One AdamW step, the port in float64 against JAX in float64, no farther from
     it than JAX's float32 step or :data:`STEP_TOL` (eps 1e-3, as in
-    ``test_torch_train.py``)."""
-    g = grads_pair
-    tm = LM(_f64(get_config(ARCH).reduced()), device="cpu")
+    ``test_torch_train.py``): the reduced config as it is, and at zamba2's own
+    head_dim 80 (its shared attention's width on the card)."""
+    g = _grads_pair(head_dim)
+    tm = LM(_f64(get_config(ARCH).reduced(**({"head_dim": head_dim} if head_dim else {}))),
+            device="cpu")
     state = convert.load_jax_train_state(tm, g["start"])
     new, met = make_train_step(tm, OPT, remat="none")(
         state, {k: torch.from_numpy(v) for k, v in g["batch"].items()})

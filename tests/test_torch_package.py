@@ -17,7 +17,7 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
            ROOT / "examples" / "train_e2e_torch.py",
            ROOT / "tools" / "profile_serve_torch.py", ROOT / "tools" / "profile_train_torch.py",
            ROOT / "tools" / "flash_bench.py", ROOT / "tools" / "flash_bwd_phases.py",
-           ROOT / "tools" / "flash_fwd_phases.py"]
+           ROOT / "tools" / "flash_fwd_phases.py", ROOT / "tools" / "flash_hd80_variants.py"]
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 FORBIDDEN_CALLS = ("scaled_dot_product_attention", "rms_norm", "compile")
 

@@ -11,9 +11,10 @@ launches after a warm-up), TFLOP/s over the (query, key) pairs the mask leaves
 visible (4 * hd operations each forward, 10 * hd backward), the share of the 989
 TFLOP/s bound, and ``F.scaled_dot_product_attention`` (its backward, through
 autograd, with --backward) on the same tensors as a yardstick (the port never calls
-it).  The forward's shapes include gemma-7b's head_dim 256.  The backward's shapes
-hold 8192 tokens a call: S in 1024..8192, causal and
-not, head_dim 128 (28 query heads on 4 K/V heads) and 64 (56 on 8).  Prints the
+it).  The forward's shapes include gemma-7b's head_dim 256 and zamba2-2.7b's head_dim
+80.  The backward's shapes hold 8192 tokens a call: S in 1024..8192, causal and
+not, head_dim 128 (28 query heads on 4 K/V heads) and 64 (56 on 8), then zamba2's
+training shape (head_dim 80, 32 heads on 32) and gemma's (head_dim 256).  Prints the
 card's name and power limit, then one JSON line per shape.  Needs a CUDA device.
 """
 
@@ -38,12 +39,16 @@ SHAPES = [
     (4, 2048, 56, 8, 64, True),      # head_dim 64, same model width
     (4, 2048, 16, 16, 256, True),    # gemma-7b prefill: head_dim 256
     (4, 2048, 16, 16, 256, False),   # the same, bidirectional
+    (4, 2048, 32, 32, 80, True),     # zamba2-2.7b prefill: head_dim 80 (its 4096-token
+                                     # window does not bite at 2048)
 ]
 # the backward's: (B, S, H, KV, hd, causal), 8192 tokens a call
 BWD_SHAPES = [(8192 // S, S, H, KV, hd, causal)
               for H, KV, hd in ((28, 4, 128), (56, 8, 64))
               for causal in (True, False)
               for S in (1024, 2048, 4096, 8192)]
+BWD_SHAPES += [(2, 4096, 32, 32, 80, True),     # zamba2-2.7b's training shape
+               (2, 4096, 16, 16, 256, True)]    # gemma-7b's
 
 
 def main() -> None:

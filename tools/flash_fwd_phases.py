@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Where a kv step of the attention forward's wgmma kernel spends its time, on the card.
 
-    python3 tools/flash_fwd_phases.py [--shape gemma|qwen2] [--out FILE]
+    python3 tools/flash_fwd_phases.py [--shape gemma|qwen2|zamba2] [--out FILE]
 
 Where no profiler can attach to the card (ncu, nsys), stall reasons cannot be read,
 so this tool instruments the kernel itself, as ``tools/flash_bwd_phases.py`` does
 the backward's: it copies the package into ``_cmp/fwd_phases/`` (git-ignored),
 inserts ``clock64()`` stamps at the phase boundaries of each steady-state kv step of
-``csrc/flash_attention_sm90.cu`` (thread 0 of each consumer warpgroup of two blocks:
+``csrc/flash_attention_sm90.cu`` (thread 0 of the first two consumer warpgroups of two blocks:
 block 0 and the middle one), builds that copy, runs one forward at the shape (gemma:
 q/k/v (4, 2048, 16, 256), causal; qwen2: q (4, 2048, 28, 128), k/v (4, 2048, 4, 128),
-causal; bf16) and prints, per block and warpgroup, the median SM cycles of each
+causal; zamba2: q/k/v (4, 2048, 32, 80), causal, whose 4096-token window does not bite
+there; bf16) and prints, per block and warpgroup, the median SM cycles of each
 phase over the steps stamped, the cycles of a whole step, and the SM clock the run
 had (cycles over %globaltimer nanoseconds).  The stamps cost a few percent of the
 kernel's time; the phases are what to compare, not the total.
 
-Phases of a step i: the wait for K_i (k_wait); S_i = Q K_i^T issued, the wait for
-V_{i-1}, P_{i-1} V_{i-1} issued (issue); the wait for S_i alone (s_wait); the online
+Phases of a step i: the wait for K_i (k_wait); the wait for this warpgroup's turn
+where the warpgroups take turns, S_i = Q K_i^T issued, the wait for V_{i-1},
+P_{i-1} V_{i-1} issued (issue); the wait for S_i alone (s_wait); the online
 softmax of S_i (softmax); the wait for P_{i-1} V_{i-1} (pv_wait); O rescaled and P_i
 packed (rescale).  Needs a CUDA device.
 """
@@ -34,31 +36,36 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 STEPS, MARKS = 512, 7
 PHASES = ["k_wait", "issue", "s_wait", "softmax", "pv_wait", "rescale"]
-SHAPES = {"gemma": (4, 2048, 16, 16, 256), "qwen2": (4, 2048, 28, 4, 128)}
+SHAPES = {"gemma": (4, 2048, 16, 16, 256), "qwen2": (4, 2048, 28, 4, 128),
+          "zamba2": (4, 2048, 32, 32, 80)}
 
 # (anchor in the kernel source, the text that replaces it): stamps 0..6 in order
 PATCHES = [
-    ("""          const int gi = gt + i, s = gi & 1;
-          mbar_wait(k_full(s), (gi >> 1) & 1);
+    ("""          const int gi = gt + i, s = stage(gi), sp = stage(gi - 1);
+          mbar_wait(k_full(s), phase(gi));
           wgmma_fence();  // sc, o and pa were last touched by ordinary instructions
+          turn_wait();
           issue_qk(s);
-          mbar_wait(v_full(s ^ 1), ((gi - 1) >> 1) & 1);
-          issue_pv(s ^ 1);
+          mbar_wait(v_full(sp), phase(gi - 1));
+          issue_pv(sp);
+          turn_pass();
           asm volatile("wgmma.wait_group.sync.aligned 1;\\n" ::: "memory");  // S_i only
           pin(sc);
           mbar_arrive_if(k_empty(s), lane == 0);
           softmax(tw.kv_lo + i * kBN, alpha);
           wgmma_wait0();  // P_{i-1} V_{i-1} is in O: only now may O be rescaled
-          pv_done(s ^ 1);
+          pv_done(sp);
           rescale_and_pack(alpha);
-""", """          const int gi = gt + i, s = gi & 1;
+""", """          const int gi = gt + i, s = stage(gi), sp = stage(gi - 1);
           stamp(0);
-          mbar_wait(k_full(s), (gi >> 1) & 1);
+          mbar_wait(k_full(s), phase(gi));
           stamp(1);
           wgmma_fence();  // sc, o and pa were last touched by ordinary instructions
+          turn_wait();
           issue_qk(s);
-          mbar_wait(v_full(s ^ 1), ((gi - 1) >> 1) & 1);
-          issue_pv(s ^ 1);
+          mbar_wait(v_full(sp), phase(gi - 1));
+          issue_pv(sp);
+          turn_pass();
           stamp(2);
           asm volatile("wgmma.wait_group.sync.aligned 1;\\n" ::: "memory");  // S_i only
           pin(sc);
@@ -68,7 +75,7 @@ PATCHES = [
           stamp(4);
           wgmma_wait0();  // P_{i-1} V_{i-1} is in O: only now may O be rescaled
           stamp(5);
-          pv_done(s ^ 1);
+          pv_done(sp);
           rescale_and_pack(alpha);
           stamp(6);
           ++it_stamp;
@@ -78,7 +85,7 @@ PATCHES = [
     int it_stamp = 0;
     const int slot = blockIdx.x == 0 ? 0 : blockIdx.x == gridDim.x / 2 ? 1 : -1;
     auto stamp = [&](int mark) {
-      if (slot >= 0 && t == 0 && it_stamp < kStampSteps) {
+      if (slot >= 0 && c < 2 && t == 0 && it_stamp < kStampSteps) {
         const long long at = ((slot * 2 + c) * kStampSteps + it_stamp) * kStampMarks + mark;
         g_stamp[at] = clock64();
         if (mark == 0) {

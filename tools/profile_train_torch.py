@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes on the GPU.
 
-Builds qwen2-7b at full width (random weights from a seed, bf16; 8 of 28 layers by
-default, as ``chip_smoke.py``'s train phase) and the train step the Trainer runs
+Builds qwen2-7b (or ``--arch``) at full width (random weights from a seed, bf16; 8
+layers by default, as ``chip_smoke.py``'s train phase; ``--arch zamba2_2p7b --layers
+6`` is its train_zamba phase) and the train step the Trainer runs
 (``make_train_step`` with its default AdamW and no remat, SyntheticLM batches), runs
 two warm-up steps, then
   * traces ``--steps`` steps with torch.profiler: wall time, device-busy time and
@@ -12,8 +13,8 @@ two warm-up steps, then
     backward, AdamW update), the way ``make_train_step`` runs them.
 Needs a CUDA device.
 
-    PYTHONPATH=src python tools/profile_train_torch.py [--layers 8] [--batch 2]
-        [--seq 4096] [--steps 3] [--out DIR]
+    PYTHONPATH=src python tools/profile_train_torch.py [--arch qwen2_7b] [--layers 8]
+        [--batch 2] [--seq 4096] [--steps 3] [--out DIR]
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def device_time_us(evt) -> float:
 
 
 def kind_of(name: str) -> str:
+    """The kind (KINDS) a device kernel's name belongs to, or "other"."""
     low = name.lower()
     for kind, pieces in KINDS:
         if any(piece in low for piece in pieces):
@@ -92,7 +94,9 @@ def traced(fn, steps: int, top: int) -> dict:
 
 
 def main() -> None:
+    """Build the model and its train step, trace and time a few steps, print JSON."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2_7b")
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=4096)
@@ -105,7 +109,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    cfg = dataclasses.replace(get_config("qwen2_7b"), n_layers=args.layers)
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=args.layers)
     dev = torch.device("cuda", 0)
     model, opt, remat = LM(cfg, device=dev), AdamWConfig(), "none"  # the Trainer's defaults
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
