@@ -41,7 +41,8 @@ struct Params {
 // scalar and mma.sync kernels; for the wgmma kernel D then lse * log2(e), each
 // (B, H, sq_pad(Sq)), rows past Sq padded (D 0, lse +inf), and dq_acc its float32
 // dq accumulator of B * H * sq_pad(Sq) * hd floats, laid out as that kernel states
-// (unused by the others).
+// (unused by the others, and by the wgmma kernel at kDqPassHeadDim, whose dq pass
+// writes dq itself: null there).
 struct BwdParams {
   const void* q;
   const void* k;
@@ -66,21 +67,23 @@ struct BwdParams {
 // rows) lies inside it.
 constexpr int kSqPad = 128;
 __host__ __device__ inline int sq_pad(int sq) { return (sq + kSqPad - 1) / kSqPad * kSqPad; }
+// The head_dim at which the wgmma backward computes dq in a pass of its own.
+constexpr int kDqPassHeadDim = 256;
 
 // Kernel variants, as repro_flash_attention_variant and
 // repro_flash_attention_bwd_variant report them.
 enum Variant { kScalar = 0, kMmaSync = 1, kSm90Wgmma = 2 };
 
 // The head_dims compiled in, forward and backward, and the 16-bit ones the TMA +
-// wgmma kernels take: the forward at 64, 80, 128 and 256, the backward at 64 and 128
-// (at 80 and 256 it keeps the mma.sync kernels).  Head_dim 80 (zamba2's shared
-// attention): its 160-byte 16-bit row is wider than one 128-byte swizzle atom, so
-// the wgmma forward cuts it into a 64-column box and a 16-column one under the
-// 32-byte swizzle (flash_attention_sm90.cu); the backward runs the mma.sync passes.
+// wgmma kernels take: the forward and the backward at 64, 80, 128 and 256 (16 and 32
+// keep the mma.sync kernels).  Head_dim 80 (zamba2's shared attention): its 160-byte
+// 16-bit row is wider than one 128-byte swizzle atom, so both wgmma kernels cut it
+// into a 64-column box and a 16-column one under the 32-byte swizzle
+// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu).
 constexpr int kHeadDims[] = {16, 32, 64, 80, 128, 256};
 constexpr int kBwdHeadDims[] = {16, 32, 64, 80, 128, 256};
 constexpr int kSm90HeadDims[] = {64, 80, 128, 256};
-constexpr int kSm90BwdHeadDims[] = {64, 128};
+constexpr int kSm90BwdHeadDims[] = {64, 80, 128, 256};
 
 template <int N>
 inline bool one_of(const int (&set)[N], int hd) {

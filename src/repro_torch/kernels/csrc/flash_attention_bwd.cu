@@ -22,10 +22,9 @@
 // atomics and no fp32 dq buffer:
 //   * a small kernel computes D for every query row into a (B, H, Sq) fp32 scratch;
 //   * pass A (dk, dv): one block per (batch, KV head, 64-key tile), one warp per 16
-//     keys (two warps per 16 keys at head_dim 256, each owning half of the columns of
-//     dk and dv and both recomputing the scores).  The block loops over the G query
-//     heads of the group and over the query tiles that can see its keys, holds dk and
-//     dv in registers for the whole loop and writes them once.  It computes the
+//     keys.  The block loops over the G query heads of the group and over the query
+//     tiles that can see its keys, holds dk and dv in registers for the whole loop
+//     and writes them once.  It computes the
 //     transposed tiles S^T = K Q^T and dP^T = V dO^T directly, so P^T and dS^T are
 //     already the A operands of dv += P^T dO and dk += dS^T Q;
 //   * pass B (dq): one block per (batch, q head, 64-row query tile), one warp per 16
@@ -42,19 +41,12 @@
 // plain version, not for speed.
 //
 // The C entry point below picks the kernels by type and head_dim with the backward's
-// rule (flash::variant_for): 16-bit inputs at head_dim 64 and 128 -- the dense
-// training path's shapes -- take the one-pass TMA + wgmma kernel of
-// flash_attention_bwd_sm90.cu (dq summed by atomics); the other 16-bit head_dims (16,
-// 32, 80 -- zamba2's shared attention -- and 256) the mma.sync passes of this file;
-// float32 the scalar passes.  A split by shape, not a fallback.
-//
-// Head_dim 80 takes the tiles of 16 and 32 (64 keys and 64 query rows in pass A, 64
-// rows and 64 keys in pass B): dk and dv of 16 keys hold 80 fp32 registers a thread,
-// dq 40.  Its rows are padded to 88 elements (176 bytes, 44 words: the eight rows g
-// of a fragment load start in banks 12g mod 32, all distinct, and ldmatrix's eight
-// 16-byte rows in distinct groups), so pass A needs 68,608 bytes of shared memory and
-// pass B 67,584: both opt in to more than the default 48 KB (allow_smem).  Its wgmma
-// redesign, on the forward's 64 + 16 column split, is still to do (ROADMAP K3).
+// rule (flash::variant_for): 16-bit inputs at head_dim 64, 80, 128 and 256 -- the
+// training paths' shapes -- take the one-pass TMA + wgmma kernel of
+// flash_attention_bwd_sm90.cu (dq summed by TMA reduce-adds); 16-bit head_dim 16 and
+// 32 the mma.sync passes of this file (tiles of 64 keys and 64 query rows, within the
+// default 48 KB of shared memory); float32 the scalar passes.  A split by shape, not a
+// fallback.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -66,7 +58,6 @@
 
 namespace {
 
-using flash::allow_smem;
 using flash::BwdParams;
 using flash::cp_async_commit;
 using flash::cp_async_wait;
@@ -146,12 +137,9 @@ struct SmemA {
   }
 };
 
-template <typename T, int HD, int BN, int BMQ, int HSPLIT>
-__global__ void __launch_bounds__(BN / 16 * HSPLIT * 32)
-    flash_bwd_dkdv_mma_kernel(const BwdParams p) {
-  constexpr int NWR = BN / 16;       // warps along the keys
-  constexpr int NT = NWR * HSPLIT * 32;
-  constexpr int HO = HD / HSPLIT;    // columns of dk, dv a warp owns
+template <typename T, int HD, int BN, int BMQ>
+__global__ void __launch_bounds__(BN / 16 * 32) flash_bwd_dkdv_mma_kernel(const BwdParams p) {
+  constexpr int NT = BN / 16 * 32;   // one warp per 16 keys
   using S = SmemA<HD, BN, BMQ>;
   constexpr int LDS = S::LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -162,7 +150,7 @@ __global__ void __launch_bounds__(BN / 16 * HSPLIT * 32)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rs = warp % NWR, hs = warp / NWR;
+  const int rs = warp;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int n0 = blockIdx.x * BN;  // early key tiles are seen by the most queries: first
   const int G = p.H / p.KV;
@@ -193,9 +181,9 @@ __global__ void __launch_bounds__(BN / 16 * HSPLIT * 32)
   if (n_it > 0) load_stage(0, 0);
   cp_async_commit();
 
-  float dk[HO / 8][4], dv[HO / 8][4];
+  float dk[HD / 8][4], dv[HD / 8][4];
 #pragma unroll
-  for (int j = 0; j < HO / 8; ++j)
+  for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
   const int key[2] = {n0 + rs * 16 + g, n0 + rs * 16 + g + 8};
@@ -254,9 +242,9 @@ __global__ void __launch_bounds__(BN / 16 * HSPLIT * 32)
       uint32_t ap[4], as[4];
       pack_a<T>(ap, st[2 * kk], st[2 * kk + 1]);
       pack_a<T>(as, dpt[2 * kk], dpt[2 * kk + 1]);
-      const int off = (kk * 16 + (lane & 15)) * LDS + hs * HO + (lane >> 4) * 8;
+      const int off = (kk * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
 #pragma unroll
-      for (int jn = 0; jn < HO / 8; jn += 2) {
+      for (int jn = 0; jn < HD / 8; jn += 2) {
         uint32_t bf[4];
         ldmatrix_x4_trans(bf, sdO + off + jn * 8);
         Mma<T>::mma(dv[jn], ap, bf[0], bf[1]);
@@ -275,10 +263,10 @@ __global__ void __launch_bounds__(BN / 16 * HSPLIT * 32)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= p.Skv) continue;
-    T* krow = dkg + (long long)key[r] * p.dk_ss + hs * HO + t * 2;
-    T* vrow = dvg + (long long)key[r] * p.dv_ss + hs * HO + t * 2;
+    T* krow = dkg + (long long)key[r] * p.dk_ss + t * 2;
+    T* vrow = dvg + (long long)key[r] * p.dv_ss + t * 2;
 #pragma unroll
-    for (int j = 0; j < HO / 8; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       *reinterpret_cast<uint32_t*>(krow + j * 8) =
           Mma<T>::pack(dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
       *reinterpret_cast<uint32_t*>(vrow + j * 8) = Mma<T>::pack(dv[j][2 * r], dv[j][2 * r + 1]);
@@ -413,32 +401,26 @@ __global__ void __launch_bounds__(BM * 2) flash_bwd_dq_mma_kernel(const BwdParam
   }
 }
 
-// Tile shapes by head_dim (16, 32, 80 and 256: 64 and 128 take the wgmma kernel): pass A
-// (keys per block, query rows per step, warps per 16 keys), pass B (query rows per
-// block, keys per step).  Chosen so the accumulators
-// fit the register file: at head_dim 256 dk and dv of 16 keys would take 256 fp32
-// registers a thread, so two warps share those keys.
-template <typename T, int HD, int BN_A, int BMQ_A, int HSPLIT, int BM_B, int BN_B>
+// Tile shapes (head_dim 16 and 32; the other 16-bit head_dims take the wgmma
+// kernel): pass A 64 keys a block and 64 query rows a step, pass B 64 query rows a
+// block and 64 keys a step.  Both fit the default 48 KB of shared memory.
+template <typename T, int HD>
 int launch_mma(const BwdParams& p, cudaStream_t st) {
+  constexpr int kTile = 64;
+  static_assert(SmemA<HD, kTile, kTile>::template bytes<T>() <= 48 * 1024 &&
+                    6 * kTile * (HD + 8) * (int)sizeof(T) <= 48 * 1024,
+                "the mma.sync passes need no opt-in to more shared memory");
   {
-    auto kern = flash_bwd_dkdv_mma_kernel<T, HD, BN_A, BMQ_A, HSPLIT>;
-    constexpr int smem = SmemA<HD, BN_A, BMQ_A>::template bytes<T>();
-    static bool raised = false;  // per instantiation
-    cudaError_t e = allow_smem(kern, smem, raised);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((p.Skv + BN_A - 1) / BN_A, p.KV, p.B);
-    kern<<<grid, BN_A / 16 * HSPLIT * 32, smem, st>>>(p);
-    e = cudaGetLastError();
+    constexpr int smem = SmemA<HD, kTile, kTile>::template bytes<T>();
+    dim3 grid((p.Skv + kTile - 1) / kTile, p.KV, p.B);
+    flash_bwd_dkdv_mma_kernel<T, HD, kTile, kTile><<<grid, kTile / 16 * 32, smem, st>>>(p);
+    cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   {
-    auto kern = flash_bwd_dq_mma_kernel<T, HD, BM_B, BN_B>;
-    constexpr int smem = (2 * BM_B + 4 * BN_B) * (HD + 8) * (int)sizeof(T);
-    static bool raised = false;
-    cudaError_t e = allow_smem(kern, smem, raised);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((p.Sq + BM_B - 1) / BM_B, p.H, p.B);
-    kern<<<grid, BM_B * 2, smem, st>>>(p);
+    constexpr int smem = 6 * kTile * (HD + 8) * (int)sizeof(T);   // Q, dO, two K/V stages
+    dim3 grid((p.Sq + kTile - 1) / kTile, p.H, p.B);
+    flash_bwd_dq_mma_kernel<T, HD, kTile, kTile><<<grid, kTile * 2, smem, st>>>(p);
     return (int)cudaGetLastError();
   }
 }
@@ -446,10 +428,8 @@ int launch_mma(const BwdParams& p, cudaStream_t st) {
 template <typename T>
 int dispatch_mma(const BwdParams& p, int hd, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch_mma<T, 16, 64, 64, 1, 64, 64>(p, st);
-    case 32: return launch_mma<T, 32, 64, 64, 1, 64, 64>(p, st);
-    case 80: return launch_mma<T, 80, 64, 64, 1, 64, 64>(p, st);
-    case 256: return launch_mma<T, 256, 64, 32, 2, 64, 32>(p, st);
+    case 16: return launch_mma<T, 16>(p, st);
+    case 32: return launch_mma<T, 32>(p, st);
     default: return -1;
   }
 }
@@ -627,7 +607,7 @@ int launch_scalar(const BwdParams& p, cudaStream_t st) {
   {
     auto kern = flash_bwd_dkdv_scalar_kernel<HD>;
     static bool raised = false;
-    cudaError_t e = allow_smem(kern, smem, raised);
+    cudaError_t e = flash::allow_smem(kern, smem, raised);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((p.Skv + kScalarWarps - 1) / kScalarWarps, p.KV, p.B);
     kern<<<grid, kScalarWarps * 32, smem, st>>>(p);
@@ -637,7 +617,7 @@ int launch_scalar(const BwdParams& p, cudaStream_t st) {
   {
     auto kern = flash_bwd_dq_scalar_kernel<HD>;
     static bool raised = false;
-    cudaError_t e = allow_smem(kern, smem, raised);
+    cudaError_t e = flash::allow_smem(kern, smem, raised);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((p.Sq + kScalarWarps - 1) / kScalarWarps, p.H, p.B);
     kern<<<grid, kScalarWarps * 32, smem, st>>>(p);

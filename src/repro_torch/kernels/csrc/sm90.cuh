@@ -152,16 +152,19 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // ------------------------------------------------------------ wgmma instructions
-// m64nNk16, fp32 accumulator d (N/2 registers a thread).  SS: A and B from shared
-// memory, TA / TB = 1 where that operand is MN-major (transposed), 0 where it is
-// K-major.  RS: A from registers, B from shared memory MN-major.
+// m64nNk16, fp32 accumulator d (N/2 registers a thread).  SS (N = 16, 32, 64, 128):
+// A and B from shared memory, TA / TB = 1 where that operand is MN-major
+// (transposed), 0 where it is K-major.  RS (N = 16, 64, 128): A from registers, B
+// from shared memory MN-major.
 
 #define D8(i)                                                                            \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
-#define D32 D8(0), D8(8), D8(16), D8(24)
+#define D16 D8(0), D8(8)
+#define D32 D16, D8(16), D8(24)
 #define D64 D32, D8(32), D8(40), D8(48), D8(56)
 #define R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define R32                                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -172,6 +175,24 @@ __device__ __forceinline__ float ex2(float x) {
   "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 #define DEFINE_WGMMA(TAG, AB)                                                               \
+  template <int TA, int TB>                                                                 \
+  __device__ __forceinline__ void ss_n16_##TAG(float (&d)[8], uint64_t da, uint64_t db,     \
+                                               int acc) {                                   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                             \
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " " R8             \
+                 ", %8, %9, p, 1, 1, %11, %12;\n}\n"                                      \
+                 : D8(0)                                                                    \
+                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));                           \
+  }                                                                                         \
+  template <int TA, int TB>                                                                 \
+  __device__ __forceinline__ void ss_n32_##TAG(float (&d)[16], uint64_t da, uint64_t db,    \
+                                               int acc) {                                   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                             \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " " R16            \
+                 ", %16, %17, p, 1, 1, %19, %20;\n}\n"                                    \
+                 : D16                                                                      \
+                 : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));                           \
+  }                                                                                         \
   template <int TA, int TB>                                                                 \
   __device__ __forceinline__ void ss_n64_##TAG(float (&d)[32], uint64_t da, uint64_t db,    \
                                                int acc) {                                   \
@@ -221,9 +242,11 @@ DEFINE_WGMMA(f16, "f16")
 #undef DEFINE_WGMMA
 #undef R64
 #undef R32
+#undef R16
 #undef R8
 #undef D64
 #undef D32
+#undef D16
 #undef D8
 
 template <typename T> struct Wg;
@@ -235,7 +258,9 @@ template <> struct Wg<__nv_bfloat16> {
   }
   template <int N, int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-    if constexpr (N == 64) ss_n64_bf16<TA, TB>(d, da, db, acc);
+    if constexpr (N == 16) ss_n16_bf16<TA, TB>(d, da, db, acc);
+    else if constexpr (N == 32) ss_n32_bf16<TA, TB>(d, da, db, acc);
+    else if constexpr (N == 64) ss_n64_bf16<TA, TB>(d, da, db, acc);
     else ss_n128_bf16<TA, TB>(d, da, db, acc);
   }
   template <int N>
@@ -254,7 +279,9 @@ template <> struct Wg<__half> {
   }
   template <int N, int TA = 0, int TB = 0>
   static __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-    if constexpr (N == 64) ss_n64_f16<TA, TB>(d, da, db, acc);
+    if constexpr (N == 16) ss_n16_f16<TA, TB>(d, da, db, acc);
+    else if constexpr (N == 32) ss_n32_f16<TA, TB>(d, da, db, acc);
+    else if constexpr (N == 64) ss_n64_f16<TA, TB>(d, da, db, acc);
     else ss_n128_f16<TA, TB>(d, da, db, acc);
   }
   template <int N>

@@ -5,15 +5,15 @@ version.  A call that needs gradients goes through :class:`FlashAttention`, a
 ``torch.autograd.Function``: on the card its forward launches the forward kernel
 with the per-row log-sum-exp ``lse`` written beside the output, and its backward
 launches the backward kernels (``csrc/flash_attention_bwd_sm90.cu``: D, then one
-pass for dk, dv and dq; or ``csrc/flash_attention_bwd.cu``: D, then dk/dv, then
-dq); on the CPU both are the plain versions of ``ref``.  A call without
+pass for dk, dv and dq, at head_dim 256 one for dk and dv and one for dq; or
+``csrc/flash_attention_bwd.cu``: D, then dk/dv, then dq); on the CPU both are the
+plain versions of ``ref``.  A call without
 gradients (serving) launches the forward kernel alone and writes no ``lse``.
 
 Which kernel a CUDA call launches is the library's own rule (``variant``,
 ``bwd_variant``): 16-bit inputs take the TMA + wgmma kernels at head_dim 64, 80,
-128 and 256 forward and at 64 and 128 backward, the mma.sync kernels at the other
-head_dims; float32 the scalar kernels.  A head_dim compiled into neither direction
-raises.  A variant that cannot run (a tensor map that cannot be encoded, a refused
+128 and 256, forward and backward, the mma.sync kernels at 16 and 32; float32 the
+scalar kernels.  A head_dim compiled into neither direction raises.  A variant that cannot run (a tensor map that cannot be encoded, a refused
 launch) raises; no other variant stands in for it.
 """
 
@@ -35,6 +35,9 @@ VARIANTS = ("scalar", "mma_sync", "sm90_wgmma")
 #: the wgmma backward pads its per-row scratch to a multiple of this many query rows
 #: (``kSqPad`` of ``csrc/flash_attention.cuh``)
 BWD_SQ_PAD = 128
+#: the head_dim at which the wgmma backward computes dq in a pass of its own, with no
+#: float32 accumulator (``kDqPassHeadDim`` of ``csrc/flash_attention.cuh``)
+BWD_DQ_PASS_HEAD_DIM = 256
 
 #: kernel launches in this process (CUDA tensors only): forward calls in all and by
 #: the kernel that ran, and backward calls likewise (one a call, whatever auxiliary
@@ -181,15 +184,17 @@ def launch_forward(q, k, v, causal, window, softcap, *, with_lse: bool):
 def _bwd_scratch(kind: str, q: torch.Tensor):
     """The backward's float32 scratch for q (B, Sq, H, hd): (delta, dq_acc).  The
     wgmma kernel takes D and lse * log2(e), each (B, H, Sq padded to BWD_SQ_PAD), and
-    a dq accumulator of as many floats as (B, H, padded Sq, hd), in the kernel's own
-    block layout (its prep kernel writes all three); the others take D as (B, H, Sq)
-    and no accumulator."""
+    (but at head_dim 256, whose dq pass writes dq itself) a dq accumulator of as many
+    floats as (B, H, padded Sq, hd), in the kernel's own block layout (its prep kernel
+    writes them); the others take D as (B, H, Sq) and no accumulator."""
     B, Sq, H, hd = q.shape
     if kind != "sm90_wgmma":
         return torch.empty((B, H, Sq), dtype=torch.float32, device=q.device), None
     sq_pad = -(-Sq // BWD_SQ_PAD) * BWD_SQ_PAD
-    return (torch.empty((2, B, H, sq_pad), dtype=torch.float32, device=q.device),
-            torch.empty((B, H, sq_pad, hd), dtype=torch.float32, device=q.device))
+    delta = torch.empty((2, B, H, sq_pad), dtype=torch.float32, device=q.device)
+    if hd == BWD_DQ_PASS_HEAD_DIM:
+        return delta, None
+    return delta, torch.empty((B, H, sq_pad, hd), dtype=torch.float32, device=q.device)
 
 
 def launch_backward(q, k, v, o, lse, do, causal, window, softcap):

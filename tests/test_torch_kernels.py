@@ -64,10 +64,9 @@ HD256_PALLAS_CASES = [
     (1, 160, 160, 2, 1, 256, True, 0),
 ]
 HD256_RAGGED_CASES = [(1, 100, 170, 2, 2, 256, True, 0)]
-# head_dim 80 (zamba2's shared attention: H = KV, causal, a sliding window; the
-# wgmma forward's 64- and 16-column boxes, the mma.sync backward's 64-row and 64-key
-# tiles): causal, a window across the Pallas test's 32-key blocks, and a window with
-# fewer queries than keys.
+# head_dim 80 (zamba2's shared attention: H = KV, causal, a sliding window; both wgmma
+# kernels' 64- and 16-column boxes): causal, a window across the Pallas test's 32-key
+# blocks, and a window with fewer queries than keys.
 HD80_PALLAS_CASES = [
     (2, 128, 128, 4, 4, 80, True, 0),
     (1, 160, 160, 2, 2, 80, True, 48),
@@ -374,11 +373,17 @@ def test_rmsnorm_backward_refuses_bad_arguments(bad):
 
 # ------------------------------------------------------------- backwards
 
-# Across the CUDA wgmma backward's tiles (128 keys; 64 query rows at head_dim 128,
-# 128 at 64): ragged GQA with Sq < Skv, and a head_dim 64 window over two key tiles.
+# Across the CUDA wgmma backward's tiles (128 keys; 64 query rows at head_dim 80 and
+# 128, 128 at 64; at 256 64 keys and 64 rows), as chip_smoke.py holds them on the card:
+# ragged GQA with Sq < Skv, a head_dim 64 window over two key tiles; head_dim 256 with
+# GQA, Sq and Skv ragged against its 64-key tiles, and a window across two of them;
+# head_dim 80 with GQA and Sq < Skv across two query tiles and three key tiles.
 BWD_EDGE_CASES = [
     (2, 191, 321, 28, 4, 128, True, 0),
     (2, 260, 260, 8, 2, 64, True, 150),
+    (2, 150, 201, 8, 2, 256, True, 0),
+    (1, 260, 260, 4, 2, 256, True, 90),
+    (2, 100, 300, 8, 4, 80, True, 0),
 ]
 BWD_CASES = (CASES + [(1, 64, 64, 2, 2, 32, True, 0, 20.0), (1, 96, 128, 4, 2, 32, True, 0, 20.0)]
              + TILE_EDGE_CASES + BWD_EDGE_CASES + HD256_PALLAS_CASES + HD256_RAGGED_CASES
@@ -551,17 +556,35 @@ def test_backward_scratch_padding_matches_the_c_header():
     assert pad and int(pad.group(1)) == flash_mod.BWD_SQ_PAD
 
 
+def test_backward_dq_pass_head_dim_matches_the_c_header():
+    """The wrapper leaves out the dq accumulator at the head_dim where the wgmma
+    backward writes dq in a pass of its own, and only there (the kernel then never
+    touches it)."""
+    header = (CSRC / "flash_attention.cuh").read_text()
+    hd = re.search(r"constexpr int kDqPassHeadDim = (\d+);", header)
+    assert hd and int(hd.group(1)) == flash_mod.BWD_DQ_PASS_HEAD_DIM
+    assert flash_mod.BWD_DQ_PASS_HEAD_DIM in _c_int_list("flash_attention.cuh", "kSm90BwdHeadDims")
+    assert "static constexpr bool kWide = HD == kDqPassHeadDim;" in \
+        (CSRC / "flash_attention_bwd_sm90.cu").read_text()
+
+
+@pytest.mark.parametrize("hd", (64, 80, 128, 256))
 @pytest.mark.parametrize("kind", flash_mod.VARIANTS)
-def test_backward_scratch_shapes(kind):
+def test_backward_scratch_shapes(kind, hd):
     """delta and dq_acc as ``flash::BwdParams`` states them: (B, H, Sq) and none for
     the scalar and mma.sync kernels; D and lse * log2(e) over a padded Sq, and a
-    (B, H, padded Sq, hd) accumulator, for the wgmma kernel."""
-    q = torch.zeros(2, 191, 28, 128, dtype=torch.bfloat16)
+    (B, H, padded Sq, hd) accumulator, for the wgmma kernel, at each head_dim it takes
+    (at 80 a 64 x 64 and a 64 x 16 block for each 64 rows: 64 * 80 floats), but none
+    at 256, whose dq pass writes dq itself."""
+    q = torch.zeros(2, 191, 28, hd, dtype=torch.bfloat16)
     delta, dq_acc = flash_mod._bwd_scratch(kind, q)
     assert delta.dtype == torch.float32 and delta.is_contiguous()
     if kind == "sm90_wgmma":
         assert tuple(delta.shape) == (2, 2, 28, 256)
-        assert tuple(dq_acc.shape) == (2, 28, 256, 128) and dq_acc.dtype == torch.float32
+        if hd == 256:
+            assert dq_acc is None
+        else:
+            assert tuple(dq_acc.shape) == (2, 28, 256, hd) and dq_acc.dtype == torch.float32
     else:
         assert tuple(delta.shape) == (2, 28, 191) and dq_acc is None
 
@@ -582,11 +605,12 @@ def _compiled_head_dims(source: str, function: str, pattern: str) -> set:
 
 def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
     """``flash::variant_for`` in ``flash_attention.cuh``, read from the source: 16-bit
-    head_dim 256 takes the TMA + wgmma kernel (kSm90Wgmma) forward and the mma.sync
-    kernels backward, and so does 16-bit head_dim 80; fp32 the scalar kernels both
-    ways; every head_dim the rule sends to a kernel is compiled into that kernel's
-    dispatch, forward and backward, and no head_dim 80 call is refused; no library is
-    loaded."""
+    head_dim 256 takes the TMA + wgmma kernel (kSm90Wgmma) forward and backward, and
+    so does 16-bit head_dim 80; 16-bit head_dim 16 and 32 the mma.sync kernels; fp32
+    the scalar kernels both ways; every head_dim the rule sends to a kernel is
+    compiled into that kernel's dispatch, forward and backward (so the mma.sync
+    backward has no instance at 80 or 256), and no head_dim 80 call is refused; no
+    library is loaded."""
     header = (CSRC / "flash_attention.cuh").read_text()
     enum = dict((name, int(code)) for name, code in
                 re.findall(r"(k\w+) = (\d+)", re.search(r"enum Variant \{([^}]*)\}",
@@ -616,10 +640,13 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
 
     for dtype in (1, 2):   # bfloat16, float16
         assert flash_mod.VARIANTS[rule(256, dtype, False)] == "sm90_wgmma"
-        assert flash_mod.VARIANTS[rule(256, dtype, True)] == "mma_sync"
+        assert flash_mod.VARIANTS[rule(256, dtype, True)] == "sm90_wgmma"
         assert flash_mod.VARIANTS[rule(128, dtype, True)] == "sm90_wgmma"
         assert flash_mod.VARIANTS[rule(80, dtype, False)] == "sm90_wgmma"
-        assert flash_mod.VARIANTS[rule(80, dtype, True)] == "mma_sync"
+        assert flash_mod.VARIANTS[rule(80, dtype, True)] == "sm90_wgmma"
+        for hd_ in (16, 32):
+            assert all(flash_mod.VARIANTS[rule(hd_, dtype, backward)] == "mma_sync"
+                       for backward in (False, True))
     for backward in (False, True):
         assert flash_mod.VARIANTS[rule(256, 0, backward)] == "scalar"
         assert flash_mod.VARIANTS[rule(80, 0, backward)] == "scalar"
@@ -643,7 +670,7 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
             r"if \(hd == (\d+)\) return launch<__nv_bfloat16, \1>"),
         (True, "mma_sync"): _compiled_head_dims(
             "flash_attention_bwd.cu", "int dispatch_mma",
-            r"case (\d+): return launch_mma<T, \1,"),
+            r"case (\d+): return launch_mma<T, \1>"),
     }
     compiled[(False, "scalar")] = _compiled_head_dims(
         "flash_attention.cu", "int dispatch_scalar", r"case (\d+): return \(int\)launch_scalar<\1>")

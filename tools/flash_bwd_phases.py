@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Where a step of the attention backward's wgmma kernel spends its time, on the card.
 
-    python3 tools/flash_bwd_phases.py [--out FILE]
+    python3 tools/flash_bwd_phases.py [--shape qwen2|zamba2|gemma] [--out FILE]
 
 Where no profiler can attach to the card (ncu, nsys), stall reasons cannot be read,
 so this tool instruments the kernel itself: it copies the package into
 ``_cmp/phases/`` (git-ignored), inserts ``clock64()`` stamps at the phase
 boundaries of each step of ``csrc/flash_attention_bwd_sm90.cu`` (thread 0 of each
 consumer warpgroup of two blocks: block 0 and the middle one), builds that copy,
-runs one backward at the training shape (q (2, 4096, 28, 128), k/v (2, 4096, 4,
-128), causal, bf16) and prints, per block and warpgroup, the median SM cycles of
-each phase over steps 20..219, the cycles of a whole step, and the SM clock the
-run had (cycles over %globaltimer nanoseconds).  The stamps cost a few percent of
-the kernel's time; the phases are what to compare, not the total.
+runs one backward at a training shape (qwen2: q (2, 4096, 28, 128), k/v (2, 4096, 4,
+128); zamba2: q/k/v (2, 4096, 32, 80), whose 4096-token window does not bite there;
+gemma: q/k/v (2, 4096, 16, 256); causal, bf16) and prints, per block and warpgroup,
+the median SM cycles of each phase over steps 20..219, the cycles of a whole step,
+and the SM clock the run had (cycles over %globaltimer nanoseconds).  The stamps
+cost a few percent of the kernel's time; the phases are what to compare, not the
+total.
 
 Phases of a step: the wait for its Q / dO stage (full_wait), S^T and dP^T issued
-and waited for (s_dp), P^T and dS^T in registers (math), dS^T to shared memory
-(ds_store), dV and dK issued (dv_dk_issue), the wait for the other warpgroup's
-dS^T (ds_full_wait), dQ issued and every product waited for (dq_and_wait, the
-stage released in between), dQ staged for the writer thread (dq_stage: the wait
-for a free buffer, the stores).  Needs a CUDA device.
+and waited for (s_dp), P^T and dS^T in registers (math), dS^T (and at head_dim 256
+P^T) to shared memory (ds_store), dV and dK issued (dv_dk; at head_dim 256 after the
+wait for the other warpgroup's half of P^T and dS^T), dQ issued (dq_issue; at the
+other head_dims after the wait for the other warpgroup's dS^T), every product waited
+for (wait, the stage released in between), dQ staged for the writer thread
+(dq_stage: the wait for a free buffer, the stores).  At head_dim 256 the kernel
+stamped is the dk / dv pass (dQ has a pass of its own): there dq_issue and dq_stage
+are empty and wait is the wait for dV and dK.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,18 +39,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 STEPS, MARKS = 512, 9
-PHASES = ["full_wait", "s_dp", "math", "ds_store", "dv_dk_issue", "ds_full_wait",
-          "dq_and_wait", "dq_stage"]
+PHASES = ["full_wait", "s_dp", "math", "ds_store", "dv_dk", "dq_issue", "wait", "dq_stage"]
+SHAPES = {"qwen2": (2, 4096, 28, 4, 128), "zamba2": (2, 4096, 32, 32, 80),
+          "gemma": (2, 4096, 16, 16, 256)}
 
 # (anchor in the kernel source, the text that replaces it): stamps 0..8 in order
 PATCHES = [
     ("""        mbar_wait(full(s), (it / kStages) & 1);
-
-        // S^T = K_c Q^T""", """        stamp(0);
+""", """        stamp(0);
         mbar_wait(full(s), (it / kStages) & 1);
         stamp(1);
-
-        // S^T = K_c Q^T"""),
+"""),
     ("""        pin(st);
         pin(dpt);
 
@@ -54,23 +58,49 @@ PATCHES = [
         stamp(2);
 
         // P^T and dS^T in place"""),
-    ("""        // dS^T to shared memory: key rows,""", """        stamp(3);
-        // dS^T to shared memory: key rows,"""),
+    ("""        if constexpr (C::kWide) {
+          // P^T and dS^T to shared memory""", """        stamp(3);
+        if constexpr (C::kWide) {
+          // P^T and dS^T to shared memory"""),
     ("""        mbar_arrive_if(ds_full(u), true);
-""", """        mbar_arrive_if(ds_full(u), true);
+
+        // dV += P^T dO""", """        mbar_arrive_if(ds_full(u), true);
         stamp(4);
-"""),
-    ("""        mbar_wait(ds_full(u), (it >> 1) & 1);
-""", """        stamp(5);
-        mbar_wait(ds_full(u), (it >> 1) & 1);
-        stamp(6);
-"""),
-    ("""        wgmma_wait<1>();  // dV and dK""", """        stamp(7);
-        wgmma_wait<1>();  // dV and dK"""),
-    ("""        mbar_arrive_if(dq_full(c, b), true);
+
+        // dV += P^T dO"""),
+    ("""        wgmma_commit();
+
+        if constexpr (C::kWide) {
+          wgmma_wait0();  // dV and dK: Q, dO, lse and D of this stage are read
+          pin(dk);
+          pin(dv);
+          mbar_arrive_if(empty(s), lane == 0);
+        } else {""", """        wgmma_commit();
+        stamp(5);
+
+        if constexpr (C::kWide) {
+          stamp(6);
+          wgmma_wait0();  // dV and dK: Q, dO, lse and D of this stage are read
+          pin(dk);
+          pin(dv);
+          mbar_arrive_if(empty(s), lane == 0);
+          stamp(7);
+          stamp(8);
+        } else {"""),
+    ("""          wgmma_commit();
+          wgmma_wait<1>();""", """          wgmma_commit();
+          stamp(6);
+          wgmma_wait<1>();"""),
+    ("""          const int b = it % kDqBufs;
+          mbar_wait(dq_empty(c, b)""", """          stamp(7);
+          const int b = it % kDqBufs;
+          mbar_wait(dq_empty(c, b)"""),
+    ("""          mbar_arrive_if(dq_full(c, b), true);
+        }
       }
-""", """        mbar_arrive_if(dq_full(c, b), true);
-        stamp(8);
+""", """          mbar_arrive_if(dq_full(c, b), true);
+          stamp(8);
+        }
       }
 """),
     ("""        const int s = it % kStages, u = it & 1;
@@ -125,6 +155,7 @@ def instrumented_copy() -> Path:
 def main() -> None:
     """Build the instrumented copy, run it once at the training shape, print phases."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="qwen2")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     import torch
@@ -144,7 +175,7 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: nothing")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    B, S, H, KV, hd = 2, 4096, 28, 4, 128
+    B, S, H, KV, hd = SHAPES[args.shape]
     q = torch.randn((B, S, H, hd), generator=gen, device=dev).bfloat16()
     k = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
     v = torch.randn((B, S, KV, hd), generator=gen, device=dev).bfloat16()
@@ -153,6 +184,8 @@ def main() -> None:
     for _ in range(3):   # the last run's stamps are read
         flash_mod.launch_backward(q, k, v, o, lse, do, True, 0, 0.0)
     torch.cuda.synchronize()
+    if flash_mod.bwd_variant(q.dtype, hd) != "sm90_wgmma":
+        sys.exit(f"flash_bwd_phases: head_dim {hd} does not run on the wgmma backward")
     cycles = np.zeros(2 * 2 * STEPS * MARKS, dtype=np.int64)
     ns = np.zeros(2 * 2 * STEPS, dtype=np.int64)
     _build.check(lib.repro_stamps_copy(cycles.ctypes.data, ns.ctypes.data), "stamps")
@@ -165,7 +198,8 @@ def main() -> None:
             d = np.diff(st, axis=1)
             step_cycles = np.diff(st[:, 0])
             step_ns = np.diff(ns[blk, c, 20:220])
-            row = {"block": "first" if blk == 0 else "middle", "warpgroup": c,
+            row = {"shape": args.shape, "block": "first" if blk == 0 else "middle",
+                   "warpgroup": c,
                    "cycles_per_step": float(np.median(step_cycles)),
                    "ns_per_step": float(np.median(step_ns)),
                    "sm_clock_ghz": float(np.median(step_cycles) / np.median(step_ns)),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the attention forward's head_dim-80 layouts on the card, each beside SDPA.
+"""Times the attention's head_dim-80 layouts on the card, each beside SDPA.
 
-    python3 tools/flash_hd80_variants.py [--iters 20] [--rounds 2] [--out FILE]
+    python3 tools/flash_hd80_variants.py [--backward] [--iters 20] [--rounds 2] [--out FILE]
 
 The wgmma forward (``csrc/flash_attention_sm90.cu``) cuts head_dim 80's 160-byte rows
 into a 64-column TMA box under the 128-byte swizzle and a 16-column one under the
@@ -22,6 +22,14 @@ Every copy runs in a process of its own, the builds together first, then the cop
 in turns, forwards and backwards, --rounds times in all.  Prints the
 card's name and power limit, then one JSON line per variant and shape.  Needs a CUDA
 device.  The padded copy serves head_dim 80 only.
+
+With --backward the same for the wgmma backward (``csrc/flash_attention_bwd_sm90.cu``),
+whose consumer warpgroups each compute a partial dQ over their own 64 keys: the
+shipped layout (two producer warps add the two partials in shared memory, the writer
+adds one block into the accumulator), a copy that adds both partials into it (twice
+the bytes of reduce-adds into L2), and a copy with a third Q / dO stage; checked at a
+ragged case and timed at zamba2-2.7b's training shape, (2, 4096, 32/32, 80), causal,
+window 4096 (not biting), beside SDPA's backward.
 """
 
 from __future__ import annotations
@@ -44,6 +52,14 @@ LAYOUTS = {"64+16, 3 stages, turns": [],
            "64+16, 2 stages, turns": [STAGES_2],
            "64+16, 3 stages": [NO_TURNS],
            "64+16, 2 stages": [STAGES_2, NO_TURNS]}
+# the backward's
+SRC_BWD = "flash_attention_bwd_sm90.cu"
+BWD_LAYOUTS = {
+    "dQ partials summed, 2 stages": [],
+    "dQ partials added apart, 2 stages": [
+        ("static constexpr bool kDqSum = HD == 80;", "static constexpr bool kDqSum = false;")],
+    "dQ partials summed, 3 stages": [
+        ("static constexpr int kStages = 2;", "static constexpr int kStages = HD == 80 ? 3 : 2;")]}
 
 # (anchor, replacement) pairs of the padded yardstick: the head_dim-80 calls run
 # head_dim 128's kernel over maps whose dim 0 is the tensors' 80 columns
@@ -64,9 +80,11 @@ PADDED = [
 CASES = {"ragged": (1, 200, 200, 4, 4, 80, True, 0),
          "zamba2": (4, 2048, 2048, 32, 32, 80, True, 4096),
          "window_bites": (1, 6144, 6144, 32, 32, 80, True, 4096)}
+BWD_CASES = {"ragged": (2, 100, 300, 8, 4, 80, True, 0),
+             "zamba2_train": (2, 4096, 4096, 32, 32, 80, True, 4096)}
 
 
-def patched_copy(variant: str) -> Path:
+def patched_copy(variant: str, backward: bool = False) -> Path:
     """The package under _cmp/hd80_variants/<variant>/src, its kernel source patched
     into a layout variant or the padded yardstick."""
     dst = ROOT / "_cmp" / "hd80_variants" / re.sub(r"\W+", "_", variant) / "src"
@@ -74,9 +92,10 @@ def patched_copy(variant: str) -> Path:
     dst.mkdir(parents=True)
     shutil.copytree(ROOT / "src" / "repro_torch", dst / "repro_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    src = dst / "repro_torch" / "kernels" / "csrc" / SRC
+    src = dst / "repro_torch" / "kernels" / "csrc" / (SRC_BWD if backward else SRC)
     text = src.read_text()
-    patches = PADDED if variant == "padded" else LAYOUTS[variant]
+    patches = (BWD_LAYOUTS[variant] if backward else
+               PADDED if variant == "padded" else LAYOUTS[variant])
     for anchor, replacement in patches:
         if text.count(anchor) != 1:
             sys.exit(f"flash_hd80_variants: the kernel source no longer has the anchor:\n"
@@ -86,7 +105,50 @@ def patched_copy(variant: str) -> Path:
     return dst
 
 
-def measure(iters: int) -> None:
+def measure_backward(iters: int, time_ms) -> None:
+    """The backward at BWD_CASES: checked against the plain version, then timed (the
+    training shape) beside SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, (B, Sq, Skv, H, KV, hd, causal, window) in BWD_CASES.items():
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).bfloat16()
+        k = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).bfloat16()
+        v = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).bfloat16()
+        do = torch.randn((B, Sq, H, hd), generator=gen, device=dev).bfloat16()
+        o, lse = flash_mod.launch_forward(q, k, v, causal, window, 0.0, with_lse=True)
+        row = {"case": name, "shape": [B, Sq, Skv, H, KV, hd, causal, window],
+               "variant_launched": flash_mod.bwd_variant(q.dtype, hd)}
+        if name == "ragged":
+            kw = dict(causal=causal, window=window)
+            qf, kf, vf = q.float(), k.float(), v.float()
+            of = ops.mha_reference(qf, kf, vf, **kw)
+            lf = ops.flash_attention_lse_reference(qf, kf, **kw)
+            want = ops.flash_attention_bwd_reference(qf, kf, vf, of, lf, do.float(), **kw)
+            got = flash_mod.launch_backward(q, k, v, o, lse, do, causal, window, 0.0)
+            row["max_err_share"] = max(float((g.float() - w).abs().max()) / float(w.abs().max())
+                                       for g, w in zip(got, want))
+            row["ok"] = row["max_err_share"] <= 2e-2
+        else:   # the window does not bite here: SDPA's causal backward is the same
+            row["ok"] = True
+            row["ms"] = time_ms(lambda: flash_mod.launch_backward(
+                q, k, v, o, lse, do, causal, window, 0.0))
+            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            row["library_ms"] = time_ms(lambda: torch.autograd.grad(out, leaves, dot,
+                                                                    retain_graph=True))
+            row["tflops"] = 10.0 * hd * (Sq * (Sq + 1) // 2) * B * H / (row["ms"] * 1e-3) / 1e12
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+
+
+def measure(iters: int, backward: bool = False) -> None:
     """In a process whose path starts at one copy: check, then time every case."""
     import torch
     import torch.nn.functional as F
@@ -109,6 +171,9 @@ def measure(iters: int) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    if backward:
+        measure_backward(iters, time_ms)
+        return
     for name, (B, Sq, Skv, H, KV, hd, causal, window) in CASES.items():
         q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).bfloat16()
         k = torch.randn((B, Skv, KV, hd), generator=gen, device=dev).bfloat16()
@@ -141,6 +206,7 @@ def measure(iters: int) -> None:
 def main() -> None:
     """Build every variant's copy together, then measure them one after another."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--backward", action="store_true", help="the backward's layouts")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2, help="times each variant is measured")
     ap.add_argument("--out", default="")
@@ -151,13 +217,14 @@ def main() -> None:
         sys.exit("flash_hd80_variants: no CUDA device")
     if args.measure:
         sys.path.insert(0, args.measure)
-        measure(args.iters)
+        measure(args.iters, args.backward)
         return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: nothing")
-    copies = {v: patched_copy(v) for v in (*LAYOUTS, "padded")}
+    variants = list(BWD_LAYOUTS) if args.backward else [*LAYOUTS, "padded"]
+    copies = {v: patched_copy(v, args.backward) for v in variants}
     builds = {v: subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
          "from repro_torch.kernels import _build; _build.load(); "
@@ -171,10 +238,11 @@ def main() -> None:
             print(f"flash_hd80_variants: {v} did not build:\n{out}", file=sys.stderr)
             failed = True
             continue
-        # ptxas' registers and spills of the head_dim-80 forward (bf16)
+        # ptxas' registers and spills of the head_dim-80 kernel (bf16)
+        kernel = "flash_bwd_sm90_kernel" if args.backward else "flash_fwd_sm90_kernel"
         lines = out.splitlines()
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and "flash_fwd_sm90_kernel" in line \
+            if "Compiling entry function" in line and kernel in line \
                     and "nv_bfloat16Li80E" in line:
                 usage = [x.strip() for x in lines[i + 1:i + 4] if "spill" in x or "registers" in x]
                 print(json.dumps({"variant": v, "ptxas": usage}), flush=True)
@@ -188,7 +256,8 @@ def main() -> None:
     for rnd, v in enumerate(order):
         path = copies[v]
         run = subprocess.run(
-            [sys.executable, __file__, "--iters", str(args.iters), "--measure", str(path)],
+            [sys.executable, __file__, "--iters", str(args.iters), "--measure", str(path),
+             *(["--backward"] if args.backward else [])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for line in run.stdout.splitlines():
             if line.startswith("{"):
