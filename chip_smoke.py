@@ -4,7 +4,7 @@
     python3 chip_smoke.py                 # everything, as below
     python3 chip_smoke.py --layers 4      # cut qwen2-7b's served depth (never its width)
     python3 chip_smoke.py --skip-serve --skip-train   # build and check the kernels, run small
-    python3 chip_smoke.py --skip-serve    # the kernels, small and both train phases
+    python3 chip_smoke.py --skip-serve    # the kernels, small and the four train phases
     python3 chip_smoke.py --out DIR       # also write report.json(l) and nvcc's log there
     python3 chip_smoke.py --bf16-seeds 6  # only the bf16 whole-model check, seeds 0..5
 
@@ -47,7 +47,10 @@ average taken at the phase's start and end (read only, never a check):
            it as a boolean mask); the backward timed beside SDPA's at the training
            shapes of qwen2-7b, zamba2-2.7b (head_dim 80) and gemma-7b (head_dim 256),
            all three on the wgmma kernel, and the mma.sync passes at head_dim 32 and
-           16, which no main path runs;
+           16, which no main path runs; launch_train's shapes (zamba2-2.7b, 8 x 256
+           tokens): the flash forward and backward held and timed beside SDPA's, the
+           RMSNorm forward at 2560 and 5120 held and timed, its backward held there
+           and at train_zamba's 2 x 4096 rows;
   small    reduced fp32 models on the card (through the kernels) against the same
            weights on the CPU (plain versions), one per family: qwen2-7b, gemma-7b,
            qwen3-32b, granite-34b, qwen3-moe, dbrx, llama-3.2-vision, whisper, zamba2,
@@ -91,7 +94,27 @@ average taken at the phase's start and end (read only, never a check):
            per step, tokens/s, MFU and peak memory;
   train_zamba  (the model before freed) the same for zamba2-2.7b at full width, 6 of
            54 layers (4 Mamba2, 2 occurrences of the shared attention block), 4
-           steps: flash at head_dim 80 forward and backward, both on wgmma.
+           steps: flash at head_dim 80 forward and backward, both on wgmma;
+  launch_train  the training launcher as a user runs it, in-process:
+           `python -m repro_torch.launch.train --arch zamba2_2p7b --plan auto
+           --steps 8 --global-batch 8 --seq 256`, zamba2-2.7b at full width and depth
+           (54 layers, 1.74 G parameters): the planner (repro_torch.core) plans on the
+           launcher's analytic cluster of H100s, then the Trainer runs 8 steps; the
+           printed [plan] line and its predicted step checked against the planner
+           run again, exact launches per step, every flash launch on wgmma both ways,
+           finite losses, the step-0 loss; read beside the measured ms a step: the
+           planner's predicted step for the same model on one H100;
+  train_dynamic  the planner-driven Trainer through the reference example's three
+           events (examples/dynamic_network.py: its cluster of 4 RTX4090D and 4 V100,
+           plan dp=2 tp=2 pp=2 mb=2; S1 bandwidth x0.3 on "ib" at step 6, S2 device 2
+           slowed x0.4 at step 12, S3 device 7 failed at step 18, as a recorded and
+           reloaded trace) training train_zamba's model for 24 steps: each event
+           checkpoints, re-plans, rebuilds the step and restores; 3 re-plans, each
+           restore bit for bit the state saved at its event (a copy held on the
+           card), exact launches, flash on wgmma; read: each restore's seconds and
+           bytes, the calibrated store bandwidth, the engine's path and wall ms per
+           event, ms a step before the first event and after the last.  The
+           checkpoints live in a temporary directory, removed at the end.
 
 Then the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.  Any failed check ends the run with a non-zero exit
@@ -102,12 +125,15 @@ it never carries on on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -724,6 +750,11 @@ def run(args, torch) -> None:
     B_TRAIN, S_TRAIN = 2, 4096   # TRAIN_4K's length; its global batch of 256 cut to 2
     TRAIN_LAYERS = 8
     ZAMBA_TRAIN_LAYERS = 6   # two of zamba2's (mamba, mamba, shared_attn) cycles
+    DYNAMIC_STEPS = 24       # train_dynamic: events at steps 6, 12 and 18
+    # launch_train: the launcher's own command line, zamba2-2.7b at full width and depth
+    B_LAUNCH, S_LAUNCH, LAUNCH_STEPS = 8, 256, 8
+    LAUNCH_ARGV = ["--arch", "zamba2_2p7b", "--plan", "auto", "--steps", str(LAUNCH_STEPS),
+                   "--global-batch", str(B_LAUNCH), "--seq", str(S_LAUNCH)]
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     bf16 = torch.bfloat16
 
@@ -1061,6 +1092,43 @@ def run(args, torch) -> None:
     bwd_mma = {f"head_dim_{hd_}": timed_backward((B_TRAIN, 2048, 2048, 16, 16, hd_, True, 0))
                for hd_ in (32, 16)}
 
+    # the launcher's training path (launch_train: zamba2-2.7b at full depth, B_LAUNCH x
+    # S_LAUNCH tokens, its 4096-token window not biting), bf16: the flash forward held
+    # and timed beside SDPA, the backward held and timed beside SDPA's, the RMSNorm
+    # forward at its widths (d_model, Mamba2's gated norm) held and timed
+    launch_case = (B_LAUNCH, S_LAUNCH, S_LAUNCH, zcfg.n_heads, zcfg.n_kv_heads, zcfg.hd,
+                   True, zcfg.attn_window)
+    launch_entry = {"path": "launch_train", **flash_case(launch_case, bf16, TOL_16BIT)}
+    flash_cases.append(launch_entry)
+    path_timed["launch_train"] = [timed_flash(launch_case, launch_entry)]
+    launch_bwd = {"path": "launch_train", **timed_backward(launch_case)}
+    zamba_widths = (zcfg.d_model, zcfg.ssm_expand * zcfg.d_model)
+    path_rms_timed["launch_train"] = [
+        timed_rmsnorm((B_LAUNCH * S_LAUNCH, w_), zcfg.norm_eps,
+                      f"rmsnorm ({B_LAUNCH * S_LAUNCH},{w_}) bf16 (launch_train)")
+        for w_ in zamba_widths]
+    # the RMSNorm backward at zamba2's widths on its training paths, bf16:
+    # launch_train's B_LAUNCH x S_LAUNCH rows and train_zamba's / train_dynamic's
+    # B_TRAIN x S_TRAIN
+    for rows_ in (B_LAUNCH * S_LAUNCH, B_TRAIN * S_TRAIN):
+        for w_ in zamba_widths:
+            x, dy = randn((rows_, w_), bf16), randn((rows_, w_), bf16)
+            w = randn((w_,), bf16, 0.1) + 1
+            dx, dw = rms_mod.launch_backward(x, w, dy, zcfg.norm_eps, 0,
+                                             _build.DTYPE_CODES[bf16], _build.DTYPE_CODES[bf16])
+            dx_ref, dw_ref = ops.rmsnorm_bwd_reference(x.float(), w.float(), dy.float(),
+                                                       zcfg.norm_eps)
+            name = f"rmsnorm backward ({rows_}, {w_}) bf16 (zamba2 training)"
+            rms_bwd_cases.append({
+                "shape": [rows_, w_], "dtype": str(bf16), "w_dtype": str(bf16),
+                "max_err_share": {"dx": compare_share(name + " dx", dx, dx_ref, TOL_16BIT),
+                                  "dw": compare_share(name + " dw", dw, dw_ref, TOL_16BIT)},
+                "max_abs_err": max(float((dx.float() - dx_ref).abs().max()),
+                                   float((dw.float() - dw_ref).abs().max())),
+                "tol": TOL_16BIT})
+            del x, dy, w, dx, dw, dx_ref, dw_ref
+    torch.cuda.empty_cache()
+
     # the serving path's two shapes (prefill, decode step)
     rms_shapes = {rows: timed_rmsnorm((rows, d), cfg.norm_eps, f"rmsnorm ({rows},{d}) bf16")
                   for rows in (B_REQ * S_REQ, B_REQ)}
@@ -1164,6 +1232,7 @@ def run(args, torch) -> None:
             # zamba2-2.7b's training shape (train_zamba) and gemma-7b's, each with its
             # repeat check and kernel times
             "head_dim_80": bwd_timed["head_dim_80"], "head_dim_256": bwd_timed["head_dim_256"],
+            "path_shapes": {"launch_train": launch_bwd},
             "worst_err_all_cases": max(max(c["max_err_share"].values())
                                        for c in flash_bwd_cases)},
         # the mma.sync backward passes, at the 16-bit head_dims 32 and 16 they keep;
@@ -1554,38 +1623,27 @@ def run(args, torch) -> None:
             S_REQ, agree=True)
 
     # -------------------------------------------------------------- train
-    # One model trained at full width, cut in depth: the Trainer over SyntheticLM
-    # batches of B_TRAIN x S_TRAIN tokens, remat none, the counts at 0 just before and
-    # read just after; exact launches of every kernel per step, and every flash
-    # launch the variant the split by shape names, forward and backward.
-    def train_phase(phase: str, tcfg, steps: int) -> dict:
+    # A training path just driven, with the counts at 0 just before: exact launches
+    # of every kernel, forward and backward, `steps` steps' worth; every flash launch
+    # the variant the split by shape names, both directions; finite losses at the
+    # logged steps, the step-0 loss where a random init puts it; ms a step between
+    # the first and last logged steps (with `event_steps`, the mean of the steps that
+    # handled no event), tokens/s, MFU and peak memory.
+    def train_reading(phase: str, tcfg, model, hist, steps: int, batch: int,
+                      seq: int, logged: list, event_steps: tuple = ()) -> dict:
         L_ = tcfg.n_layers
-        start = probe()
-        t0 = time.perf_counter()
-        trainer = Trainer(TrainerConfig(
-            arch=tcfg, steps=steps, global_batch=B_TRAIN, seq_len=S_TRAIN,
-            ckpt_every=0, log_every=1, remat="none", seed=args.seed, device="cuda"))
-        state = trainer.init_state()
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        n_params = trainer.model.n_params()
-        # parameters whose products run in a step: zamba2's shared block is held
-        # once and runs at each of its occurrences
-        n_shared = sum(tcfg.block_kind(i) == "shared_attn" for i in range(L_))
-        flop_params = n_params
-        if n_shared > 1:
-            flop_params += (n_shared - 1) * sum(
-                p.numel() for p in trainer.model.shared.parameters())
-        torch.cuda.reset_peak_memory_stats()
-        # the main path, with the counts at 0
-        ops.reset_launch_counts()
-        state, hist = trainer.run(state)
-        torch.cuda.synchronize()
         counts = ops.launch_counts()
         path_counts[phase] = counts
         path_variants[phase] = ops.flash_launches_by_variant()
         path_bwd_variants[phase] = ops.flash_bwd_launches_by_variant()
         peak_bytes = torch.cuda.max_memory_allocated()
+        n_params = model.n_params()
+        # parameters whose products run in a step: zamba2's shared block is held
+        # once and runs at each of its occurrences
+        n_shared = sum(tcfg.block_kind(i) == "shared_attn" for i in range(L_))
+        flop_params = n_params
+        if n_shared > 1:
+            flop_params += (n_shared - 1) * sum(p.numel() for p in model.shared.parameters())
         per_step = train_launches(tcfg)
         want = {k: steps * n for k, n in per_step.items()}
         fwd_kind = expected_variant(tcfg.torch_dtype, tcfg.hd)
@@ -1600,7 +1658,7 @@ def run(args, torch) -> None:
                 fail(f"{phase}: flash {name} launches by variant {got}: all {n} must be "
                      f"{kind!r}")
         losses = [h["loss"] for h in hist]
-        if [h["step"] for h in hist] != list(range(steps)) or not all(
+        if [h["step"] for h in hist] != logged or not all(
                 math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
             fail(f"{phase}: losses or grad norms missing or not finite: {hist}")
         # at init the logits of the random tied unembedding (N(0, 0.02^2) entries)
@@ -1612,23 +1670,26 @@ def run(args, torch) -> None:
             fail(f"{phase}: step-0 loss {losses[0]:.4f} is not within 0.5 of "
                  f"{loss0_expected:.4f}")
         walls = [h["wall"] for h in hist]
-        step_ms = (walls[-1] - walls[0]) * 1e3 / (steps - 1)   # steps 2..steps
-        tokens = B_TRAIN * S_TRAIN
+        step_ms = (walls[-1] - walls[0]) * 1e3 / (logged[-1] - logged[0])
+        if event_steps:   # every step logged: the steps that handled no event
+            step_ms = float(np.mean([(walls[i] - walls[i - 1]) * 1e3
+                                     for i in range(1, len(walls))
+                                     if logged[i] not in event_steps]))
+        tokens = batch * seq
         # 6 operations per parameter and token at each occurrence, and attention's
         # 12 * hd per visible (query, key) pair (forward 4, backward 8) at each
         # attention occurrence; the chunkwise SSD's products with no parameter in them
         # are left out
         n_attn = sum(tcfg.block_kind(i) in ("attn", "shared_attn") for i in range(L_))
         attn_flops = 12.0 * tcfg.hd * visible_pairs(
-            S_TRAIN, S_TRAIN, tcfg.causal, tcfg.attn_window) * B_TRAIN * tcfg.n_heads * n_attn
+            seq, seq, tcfg.causal, tcfg.attn_window) * batch * tcfg.n_heads * n_attn
         model_flops = 6.0 * flop_params * tokens + attn_flops
-        out = {
+        return {
             "phase": phase, "config": tcfg.name, "dtype": tcfg.dtype,
             "layers": L_, "layers_published": get_config(tcfg.name).n_layers,
             "d_model": tcfg.d_model, "head_dim": tcfg.hd, "n_params": n_params,
-            "flop_params": flop_params,
-            "global_batch": B_TRAIN, "seq_len": S_TRAIN, "steps": steps,
-            "remat": "none", "init_s": round(init_s, 2),
+            "flop_params": flop_params, "global_batch": batch, "seq_len": seq,
+            "steps": steps, "remat": "none",
             "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
             "lrs": [h["lr"] for h in hist],
             "step0_loss_expected": loss0_expected, "ln_vocab": math.log(tcfg.vocab),
@@ -1640,6 +1701,214 @@ def run(args, torch) -> None:
             "launches": counts, "launches_per_step": per_step,
             "flash_launches_by_variant": path_variants[phase],
             "flash_bwd_launches_by_variant": path_bwd_variants[phase]}
+
+    # One model trained at full width, cut in depth: the Trainer over SyntheticLM
+    # batches of B_TRAIN x S_TRAIN tokens, remat none, every step logged.
+    def train_phase(phase: str, tcfg, steps: int) -> dict:
+        start = probe()
+        t0 = time.perf_counter()
+        trainer = Trainer(TrainerConfig(
+            arch=tcfg, steps=steps, global_batch=B_TRAIN, seq_len=S_TRAIN,
+            ckpt_every=0, log_every=1, remat="none", seed=args.seed, device="cuda"))
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, with the counts at 0
+        ops.reset_launch_counts()
+        state, hist = trainer.run(state)
+        torch.cuda.synchronize()
+        out = train_reading(phase, tcfg, trainer.model, hist, steps, B_TRAIN, S_TRAIN,
+                            list(range(steps)))
+        out["init_s"] = round(init_s, 2)
+        emit(with_clocks(out, start))
+        stop_if_failed(phase)
+        del trainer, state
+        torch.cuda.empty_cache()
+        return out
+
+    class Tee(io.TextIOBase):
+        """Standard output, also kept in a buffer (a phase reads what its entry
+        point printed)."""
+
+        def __init__(self, out):
+            self.out, self.buf = out, io.StringIO()
+
+        def write(self, s):
+            self.buf.write(s)
+            return self.out.write(s)
+
+        def flush(self):
+            self.out.flush()
+
+    # The training launcher as a user runs it, at zamba2-2.7b's full width and
+    # depth: planning on the launcher's analytic cluster of H100s (--plan auto),
+    # then the Trainer; the counts at 0 just before main() and read just after.
+    # Beside the measured step, the planner's prediction for the same model on one
+    # H100 (a reading, never a check).
+    def launch_train_phase() -> dict:
+        from repro_torch.core import (ParallelPlan, hetero_cluster, plan_hybrid,
+                                      simulate_training_step)
+        from repro_torch.launch import train as launch_train
+        phase = "launch_train"
+        start = probe()
+        lcfg = get_config("zamba2_2p7b")
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            tee = Tee(sys.stdout)
+            # the main path, with the counts at 0
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                trainer = launch_train.main(LAUNCH_ARGV + ["--ckpt-dir", ckpt_dir])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            out = train_reading(phase, lcfg, trainer.model, trainer.history, LAUNCH_STEPS,
+                                B_LAUNCH, S_LAUNCH, [0, LAUNCH_STEPS - 1])
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        printed = re.findall(r"^\[plan\] (.*) \(predicted step ([0-9.]+) ms\)$",
+                             tee.buf.getvalue(), re.M)
+        # the launcher's planning step again (deterministic), for its unrounded
+        # prediction, and the prediction for the same model on one H100
+        desc = lcfg.to_model_desc()
+        res = plan_hybrid(hetero_cluster({"H100": max(torch.cuda.device_count(), 4)},
+                                         gpus_per_node=4),
+                          desc, global_batch=B_LAUNCH, seq=S_LAUNCH, with_baseline=False)
+        one = simulate_training_step(ParallelPlan(), desc, hetero_cluster({"H100": 1}),
+                                     global_batch=B_LAUNCH, seq=S_LAUNCH)
+        if (trainer.plan is None or len(printed) != 1
+                or printed[0][0] != trainer.plan.describe()
+                or trainer.plan.to_json() != res.plan.to_json()
+                or printed[0][1] != f"{res.predicted.step_time * 1e3:.1f}"
+                or not 0 < res.predicted.step_time < math.inf):
+            fail(f"{phase}: the [plan] line {printed} does not name the launcher's plan "
+                 f"{res.plan.describe()} and its predicted step "
+                 f"{res.predicted.step_time * 1e3:.1f} ms")
+        out.update({
+            "argv": LAUNCH_ARGV, "main_wall_s": wall_s,
+            "plan": trainer.plan.to_json() if trainer.plan else None,
+            "plan_line": printed,
+            "planned_on": f"hetero_cluster({{'H100': {max(torch.cuda.device_count(), 4)}}})",
+            "predicted_ms_planned_cluster": res.predicted.step_time * 1e3,
+            "predicted_ms_one_h100": one.step_time * 1e3,
+            "predicted_one_h100_breakdown_ms": {
+                "compute": one.compute_time * 1e3, "bubble": one.bubble_time * 1e3},
+            "measured_over_predicted_one_h100": out["ms_per_step"] / (one.step_time * 1e3)})
+        emit(with_clocks(out, start))
+        stop_if_failed(phase)
+        del trainer
+        torch.cuda.empty_cache()
+        return out
+
+    # The planner-driven Trainer through the reference example's three events on its
+    # analytic cluster, training train_zamba's model: each event checkpoints, applies
+    # the event, re-plans, rebuilds the step and restores; the subclass holds a copy
+    # of the state on the card across each event to show the restore gives it back
+    # bit for bit, and removes the checkpoint once read.  All checkpoints live under
+    # one temporary directory, removed at the end, pass or fail.
+    def train_dynamic_phase() -> dict:
+        from repro_torch.core import NetworkEvent, ParallelPlan, hetero_cluster
+        from repro_torch.scenarios import Trace
+        phase = "train_dynamic"
+        start = probe()
+        dcfg = dataclasses.replace(get_config("zamba2_2p7b"), n_layers=ZAMBA_TRAIN_LAYERS)
+        steps = DYNAMIC_STEPS
+        held: list = []
+
+        class HeldTrainer(Trainer):
+            def _handle_event(self, step, ev, state):
+                opt = state["opt"]
+                saved = ({n: t.detach().clone() for n, t in state["params"].items()},
+                         {n: t.clone() for n, t in opt.m.items()},
+                         {n: t.clone() for n, t in opt.v.items()}, opt.step.clone())
+                t0 = time.perf_counter()
+                restored = super()._handle_event(step, ev, state)
+                torch.cuda.synchronize()
+                event_s = time.perf_counter() - t0
+                ropt = restored["opt"]
+                same = (all(torch.equal(saved[0][n], t) for n, t in restored["params"].items())
+                        and all(torch.equal(saved[1][n], t) for n, t in ropt.m.items())
+                        and all(torch.equal(saved[2][n], t) for n, t in ropt.v.items())
+                        and saved[0].keys() == restored["params"].keys()
+                        and saved[1].keys() == ropt.m.keys() == ropt.v.keys()
+                        and torch.equal(saved[3], ropt.step))
+                ck = Path(self.cfg.ckpt_dir) / f"step_{step}"
+                # the restore's first half again: the checkpoint read into host
+                # memory (store.restore), the rest being the copies onto the card
+                t0 = time.perf_counter()
+                tree, _ = restore_state(ck, jax_train_state_like(self.model))
+                read_s = time.perf_counter() - t0
+                del tree
+                held.append({"step": step, "kind": ev.kind, "bit_exact": same,
+                             "event_s": event_s, "read_again_s": read_s,
+                             "checkpoint_file_bytes": (ck / "arrays.npz").stat().st_size})
+                shutil.rmtree(ck)
+                del saved
+                return restored
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_dynamic_")
+        try:
+            topo = hetero_cluster({"RTX4090D": 4, "V100": 4}, gpus_per_node=4)
+            trace = Trace.from_events(
+                "s1s2s3", [NetworkEvent(6.0, "bandwidth", factor=0.3, selector="ib"),
+                           NetworkEvent(12.0, "slowdown", device_id=2, factor=0.4),
+                           NetworkEvent(18.0, "fail", device_id=7)], horizon=float(steps))
+            trace = Trace.load(trace.record(Path(tmp) / "s1s2s3.trace.jsonl"))
+            cluster = topo.describe().splitlines()
+            t0 = time.perf_counter()
+            trainer = HeldTrainer(
+                TrainerConfig(arch=dcfg, steps=steps, global_batch=B_TRAIN, seq_len=S_TRAIN,
+                              ckpt_dir=str(Path(tmp) / "ckpt"), ckpt_every=0, log_every=1,
+                              remat="none", seed=args.seed, device="cuda"),
+                topo=topo, scenario=trace,
+                plan=ParallelPlan(dp=2, tp=2, pp=2, microbatches=2))
+            state = trainer.init_state()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            # the main path, with the counts at 0
+            ops.reset_launch_counts()
+            state, hist = trainer.run(state)
+            torch.cuda.synchronize()
+            out = train_reading(phase, dcfg, trainer.model, hist, steps, B_TRAIN, S_TRAIN,
+                                list(range(steps)), tuple(s for s, _ in trainer.events))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        event_steps = [s for s, _ in trainer.events]
+        records = trainer.adaptations
+        if (trainer.replans != 3 or len(records) != 3 or event_steps != [6, 12, 18]
+                or [r["step"] for r in held] != event_steps
+                or not all(r["bit_exact"] for r in held)):
+            fail(f"{phase}: {trainer.replans} replans at {event_steps}, adaptations "
+                 f"{[(r.event.kind, r.action) for r in records]}, restores {held}: want 3 "
+                 "replans at steps 6, 12, 18, each restore bit for bit")
+        walls = out["step_walls_s"]
+        first, last = event_steps[0], event_steps[-1]
+        before_ms = (walls[first - 1] - walls[0]) * 1e3 / (first - 1)
+        after_ms = (walls[-1] - walls[last]) * 1e3 / (steps - 1 - last)
+        eng = trainer.engine
+        out.update({
+            "init_s": round(init_s, 2), "cluster": cluster,
+            "plan_start": "dp=2 tp=2 pp=2 mb=2",
+            "replans": trainer.replans,
+            "adaptations": [{"time": r.time, "kind": r.event.kind, "action": r.action,
+                             "predicted_ms_old": r.old_step_time * 1e3,
+                             "predicted_ms_new": r.new_step_time * 1e3,
+                             "switch_cost_s": r.switch_cost} for r in records],
+            "plan_end": trainer.plan.to_json(),
+            "restores": [{**r, **h} for r, h in zip(trainer.restores, held)],
+            "calibrated_store_bytes_per_s": eng.reconfig.io_bw,
+            "engine": [{"path": r.path, "wall_ms": r.wall_time * 1e3, "cold": r.cold,
+                        "kept": r.kept, "switch_cost_s": r.switch_cost,
+                        "predicted_ms": r.predicted.step_time * 1e3} for r in eng.history],
+            "ms_per_step_with_events": (walls[-1] - walls[0]) * 1e3 / (steps - 1),
+            "ms_per_step_before_first_event": before_ms,
+            "ms_per_step_after_last_event": after_ms,
+            "after_over_before": after_ms / before_ms})
+        for r in records:
+            print(f"  {phase}: t={r.time:4.1f} {r.event.kind:9s} -> {r.action}", flush=True)
         emit(with_clocks(out, start))
         stop_if_failed(phase)
         del trainer, state
@@ -1657,6 +1926,10 @@ def run(args, torch) -> None:
         report["train_zamba"] = train_phase(
             "train_zamba", dataclasses.replace(get_config("zamba2_2p7b"),
                                                n_layers=ZAMBA_TRAIN_LAYERS), steps=4)
+        # zamba2-2.7b at full width and depth through the launcher (1.74 G parameters,
+        # ~21 GB with AdamW), then the planner-driven Trainer at train_zamba's size
+        report["launch_train"] = launch_train_phase()
+        report["train_dynamic"] = train_dynamic_phase()
 
     # ------------------------------- serve_moe, serve_vlm, serve_audio, serve_gemma
     # The other families at full width and depth, each freed before the next

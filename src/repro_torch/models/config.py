@@ -4,10 +4,8 @@
 instantiate (repro_torch/configs/<id>.py).  It drives
 
   * the PyTorch model definition (repro_torch.models.lm),
+  * the planner's analytic description (:meth:`to_model_desc`),
   * the input specs of one cell (:meth:`input_specs`).
-
-The planner bridge ``to_model_desc`` of the reference is left out until the
-planner itself is ported.
 """
 
 from __future__ import annotations
@@ -16,6 +14,8 @@ from dataclasses import dataclass, replace
 from typing import Literal
 
 import torch
+
+from repro_torch.core.opgraph import ModelDesc
 
 BlockKind = Literal["attn", "mamba", "mlstm", "slstm", "shared_attn"]
 
@@ -126,6 +126,22 @@ class ArchConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _TORCH_DTYPES[self.dtype]
+
+    # -- planner bridge -------------------------------------------------------
+
+    def to_model_desc(self) -> ModelDesc:
+        pattern = tuple("mamba" if b == "mamba" else
+                        ("mlstm" if b in ("mlstm", "slstm") else "attn")
+                        for b in self.pattern) if self.block_pattern else ()
+        return ModelDesc(
+            name=self.name, n_layers=self.n_layers, d_model=self.d_model,
+            n_heads=self.n_heads, n_kv_heads=self.n_kv_heads, d_ff=self.d_ff,
+            vocab=self.vocab, head_dim=self.head_dim,
+            n_experts=self.n_experts, top_k=self.top_k,
+            ssm_state=self.ssm_state, block_pattern=pattern,
+            ffn_kind=self.ffn_kind, cross_attn_every=self.cross_attn_every,
+            encoder_layers=self.encoder_layers,
+            dtype_bytes=self.torch_dtype.itemsize)
 
     # -- reduced config for CPU tests ------------------------------------
 

@@ -1,13 +1,23 @@
-"""Training runtime on one device: the planner-free half of the reference's
-``runtime/trainer.py``.
+"""Fault-tolerant training runtime on one device (the reference's
+``runtime/trainer.py``).
 
-Drives the train step over the synthetic pipeline with periodic asynchronous
-checkpoints (``checkpoint.store``, the reference's on-disk format), and keeps the
-same ``history`` records.  What the reference adds around that -- network events
-(S1/S2/S3) applied to a cluster topology, the re-planning engine, the mesh and
-sharding rebuild and the elastic restore -- needs the planner (``repro.core``)
-and the parallel layer, which are not ported yet: passing ``topo``, ``events``,
-``scenario``, ``plan`` or ``mesh`` raises ``NotImplementedError``.
+Drives the train step over the synthetic pipeline with:
+
+  * periodic asynchronous checkpoints (``checkpoint.store``, the reference's
+    on-disk format, the plan's JSON in the manifest),
+  * the *event loop* of the paper's dynamic scenarios: injected
+    :class:`NetworkEvent`\\ s (S1 bandwidth / S2 slowdown / S3 failure) are
+    applied to the analytic :class:`ClusterTopology`, the
+    :class:`DynamicOrchestrator` re-plans through the :class:`ReplanEngine`, and
+    the trainer rebuilds its step and restores the state it checkpointed at the
+    event, then folds the measured restore into the engine's reconfiguration
+    cost model (``calibrate_io``),
+  * the same ``history`` records and ``adaptations`` / ``engine`` views.
+
+One device runs the same step whatever the plan says: the plan steers the event
+loop, as the reference's host mesh of ``(n, 1)`` devices does.  Sharding the
+state over a mesh (``mesh=``, ``zero3=True``) needs the parallel layer, which is
+not ported yet (ROADMAP M11), and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,10 +30,15 @@ from typing import Any, Sequence
 
 import torch
 
-from repro_torch.checkpoint.store import AsyncSaver
+from repro_torch.checkpoint.store import AsyncSaver, _items, restore
+from repro_torch.core import (ClusterTopology, DynamicOrchestrator,
+                              NetworkEvent, ParallelPlan, ReplanEngine,
+                              StrategyCache)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.convert import export_jax_train_state
+from repro_torch.models.convert import (export_jax_train_state,
+                                        jax_train_state_like,
+                                        load_jax_train_state)
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel.trainstep import init_train_state, make_train_step
@@ -48,42 +63,101 @@ class TrainerConfig:
     device: str = "cuda"
 
 
-def _waits_for(what: str, item: str) -> NotImplementedError:
+def _needs_parallel_layer(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"Trainer({what}=...) needs the {item}, which is not ported yet; the port "
-        "trains on one device without it")
+        f"Trainer({what}) shards the train state over a mesh, which needs the "
+        "parallel layer, not ported yet (ROADMAP M11); the port trains on one "
+        "device without it")
 
 
 class Trainer:
     def __init__(self, cfg: TrainerConfig, *,
-                 mesh=None, plan=None, topo=None,
-                 events: Sequence = (), scenario=None):
-        for what, value, item in (
-                ("topo", topo, "planner (ROADMAP M14)"),
-                ("events", list(events), "planner (ROADMAP M14)"),
-                ("scenario", scenario, "planner and scenarios (ROADMAP M14)"),
-                ("plan", plan, "planner (ROADMAP M14)"),
-                ("mesh", mesh, "parallel layer (ROADMAP M11)")):
-            if value is not None and value != []:
-                raise _waits_for(what, item)
+                 mesh=None,
+                 plan: ParallelPlan | None = None,
+                 topo: ClusterTopology | None = None,
+                 events: Sequence[tuple[int, NetworkEvent]] = (),
+                 scenario: "str | object | None" = None):
+        if mesh is not None:
+            raise _needs_parallel_layer("mesh=...")
         if cfg.zero3:
-            raise _waits_for("zero3", "parallel layer (ROADMAP M11)")
+            raise _needs_parallel_layer("zero3=True")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         self.model = LM(cfg.arch, device=self.device)
+        self.plan = plan
+        self.topo = topo
+        self.trace = None
+        events = list(events)
+        if scenario is not None:
+            # a catalog name or a repro_torch.scenarios.Trace: event times map
+            # onto training steps via Trace.to_step_events, and a catalog
+            # name also supplies the topology when none was given
+            from repro_torch.scenarios import Trace, build_trace, get_scenario
+            if isinstance(scenario, str):
+                self.trace = build_trace(scenario, seed=cfg.seed)
+                if topo is None:
+                    topo = self.topo = get_scenario(scenario).make_topology()
+            elif isinstance(scenario, Trace):
+                if topo is None:
+                    raise ValueError(
+                        "an explicit Trace needs an explicit topo=")
+                self.trace = scenario
+            else:
+                raise TypeError(f"scenario must be a catalog name or Trace, "
+                                f"got {type(scenario).__name__}")
+            events += self.trace.to_step_events(cfg.steps)
+        if topo is not None:
+            # fail fast on a trace/topology mismatch instead of KeyError-ing
+            # mid-run (e.g. a 16-device catalog trace on an 8-device topo)
+            missing = sorted({ev.device_id for _, ev in events
+                              if ev.device_id is not None}
+                             - set(topo.devices))
+            if missing:
+                raise ValueError(
+                    f"events reference device ids {missing} not present "
+                    f"in the topology ({sorted(topo.devices)})")
+        self.events = sorted(events, key=lambda e: e[0])
         self.saver = AsyncSaver()
         self.history: list[dict] = []
+        self.replans = 0
+        # one record per elastic restore: the event's step, the seconds the
+        # restore took and the bytes of the restored tree (what calibrate_io
+        # is given)
+        self.restores: list[dict] = []
+        self._start_step = 0
+        self._hist_mark = 0
+        self._orch = None
+        self._engine = None
+        if topo is not None:
+            desc = cfg.arch.to_model_desc()
+            self._engine = ReplanEngine(
+                desc, global_batch=cfg.global_batch, seq=cfg.seq_len,
+                cache=StrategyCache())
+            try:
+                # cold plan up front: warms the strategy cache + candidate
+                # portfolio so every later event takes a warm path
+                self._engine.plan(topo)
+            except RuntimeError:
+                pass
+            self._orch = DynamicOrchestrator(
+                model=desc, global_batch=cfg.global_batch, seq=cfg.seq_len,
+                engine=self._engine)
         self._build()
+
+    # -- public adaptation telemetry ------------------------------------------
 
     @property
     def adaptations(self) -> list:
-        """Adaptation records: none without the planner."""
-        return []
+        """Adaptation records (one per handled event) — the public view of
+        the orchestrator history; empty when no topology was attached."""
+        return list(self._orch.history) if self._orch is not None else []
 
     @property
     def engine(self):
-        """The re-planning engine: none without the planner."""
-        return None
+        """The incremental ReplanEngine (None when no topology attached)."""
+        return self._engine
+
+    # -- (re)build against the current plan ------------------------------------
 
     def _build(self) -> None:
         self._step = make_train_step(self.model, self.cfg.opt,
@@ -105,12 +179,70 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
+    def _plan_json(self) -> str:
+        return self.plan.to_json() if self.plan else ""
+
+    # -- event handling (paper §2.2: S1/S2/S3) --------------------------------
+
+    def _handle_event(self, step: int, ev: NetworkEvent,
+                      state: Pytree) -> Pytree:
+        assert self.topo is not None and self._orch is not None
+        self.saver.wait()
+        ck = Path(self.cfg.ckpt_dir) / f"step_{step}"
+        self.saver.submit(ck, export_jax_train_state(self.model, state),
+                          step=step, plan_json=self._plan_json())
+        self.saver.wait()
+        self.topo.apply_event(ev)
+        if self._engine is not None and len(self.history) > self._hist_mark:
+            # remaining-horizon budget for the engine's switch-cost
+            # hysteresis: steps left x the measured mean step wall time.
+            # Only entries logged by *this* run() invocation qualify: their
+            # wall is measured from this run's t0 and covers the steps since
+            # start_step (a previous run's entries would mix timebases)
+            m = self.history[-1]
+            done = max(m["step"] - self._start_step + 1, 1)
+            self._engine.switch_horizon_s = \
+                (self.cfg.steps - step) * m["wall"] / done
+        old_plan = self.plan or ParallelPlan()
+        self.plan = self._orch.adapt(old_plan, self.topo, ev)
+        self.replans += 1
+        # rebuild the step against the new plan (one device: the same step)
+        # and restore the state checkpointed above
+        self._build()
+        like = jax_train_state_like(self.model)
+        t0 = time.perf_counter()
+        tree, _ = restore(ck, like)
+        restored = load_jax_train_state(self.model, tree)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        restore_s = time.perf_counter() - t0
+        # the restored tree's bytes (parameters in the model's dtype, fp32
+        # moments, the int32 step), as the reference counts its leaves
+        nbytes = sum(leaf.nbytes for _, leaf in _items(tree))
+        del tree                      # the host copy, before the next step
+        self.restores.append({"step": step, "seconds": restore_s, "bytes": nbytes})
+        if self._engine is not None:
+            # calibration hook: fold the measured checkpoint-restore path
+            # into the reconfiguration cost model, so simulated switch
+            # charges track what elastic restore costs on this deployment
+            self._engine.reconfig.calibrate_io(restore_s, float(nbytes))
+        return restored
+
+    # -- main loop -------------------------------------------------------------
+
     def run(self, state: Pytree | None = None,
             start_step: int = 0) -> tuple[Pytree, list[dict]]:
         cfg = self.cfg
         state = state if state is not None else self.init_state()
+        self._start_step = start_step
+        self._hist_mark = len(self.history)
+        ev_i = 0
         t0 = time.perf_counter()
         for step in range(start_step, cfg.steps):
+            while ev_i < len(self.events) and self.events[ev_i][0] == step:
+                _, ev = self.events[ev_i]
+                state = self._handle_event(step, ev, state)
+                ev_i += 1
             batch = self._place(self.data.batch(step))
             state, metrics = self._step(state, batch)
             if step % cfg.log_every == 0 or step == cfg.steps - 1:
@@ -123,6 +255,7 @@ class Trainer:
                       f"tok/s {tok_s:,.0f}", flush=True)
             if cfg.ckpt_every and step and step % cfg.ckpt_every == 0:
                 self.saver.submit(Path(cfg.ckpt_dir) / f"step_{step}",
-                                  export_jax_train_state(self.model, state), step=step)
+                                  export_jax_train_state(self.model, state),
+                                  step=step, plan_json=self._plan_json())
         self.saver.wait()
         return state, self.history

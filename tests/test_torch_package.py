@@ -15,6 +15,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
            ROOT / "examples" / "train_e2e_torch.py",
+           ROOT / "examples" / "dynamic_network_torch.py",
            ROOT / "tools" / "profile_serve_torch.py", ROOT / "tools" / "profile_train_torch.py",
            ROOT / "tools" / "flash_bench.py", ROOT / "tools" / "flash_bwd_phases.py",
            ROOT / "tools" / "flash_fwd_phases.py", ROOT / "tools" / "flash_hd80_variants.py"]
@@ -76,7 +77,8 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.kernels.ops, repro_torch.configs, "
             "repro_torch.parallel.trainstep, repro_torch.optim.adamw, "
             "repro_torch.data.pipeline, repro_torch.checkpoint.store, "
-            "repro_torch.runtime.trainer; "
+            "repro_torch.runtime.trainer, repro_torch.launch.train, "
+            "repro_torch.core, repro_torch.obs, repro_torch.scenarios; "
             "print(len(repro_torch.configs.all_configs()))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
