@@ -50,7 +50,9 @@ average taken at the phase's start and end (read only, never a check):
            16, which no main path runs; launch_train's shapes (zamba2-2.7b, 8 x 256
            tokens): the flash forward and backward held and timed beside SDPA's, the
            RMSNorm forward at 2560 and 5120 held and timed, its backward held there
-           and at train_zamba's 2 x 4096 rows;
+           and at train_zamba's 2 x 4096 rows; launch_reduced's (the reduced float32
+           qwen2-7b, 8 x 256 tokens): the scalar fp32 flash forward and backward held
+           and timed beside SDPA's;
   small    reduced fp32 models on the card (through the kernels) against the same
            weights on the CPU (plain versions), one per family: qwen2-7b, gemma-7b,
            qwen3-32b, granite-34b, qwen3-moe, dbrx, llama-3.2-vision, whisper, zamba2,
@@ -92,6 +94,16 @@ average taken at the phase's start and end (read only, never a check):
            and backward, per step, each flash launch the variant the split by shape
            names; finite losses, the step-0 loss where a random init puts it; ms
            per step, tokens/s, MFU and peak memory;
+  train_mesh  the train phase's model, batches and seed again, on a one-rank NCCL
+           process group (rendezvous on 127.0.0.1) and a (1, 1) ("data", "model")
+           DeviceMesh on the card (launch.mesh.make_host_mesh), ZeRO-3 on: the
+           Trainer's mesh path, its state and batches DTensors under the reference's
+           axis rules, both kernels reached through local_map on the local shards;
+           every step's loss within 5e-3 of train's (the wgmma backward's dq adds
+           in no fixed order), exactly train's launches per step, all on wgmma; ms
+           per step, tokens/s, MFU and peak memory beside train's (the gap is
+           DTensor's host cost: read, not checked); the process group destroyed
+           before the next phase;
   train_zamba  (the model before freed) the same for zamba2-2.7b at full width, 6 of
            54 layers (4 Mamba2, 2 occurrences of the shared attention block), 4
            steps: flash at head_dim 80 forward and backward, both on wgmma;
@@ -114,7 +126,16 @@ average taken at the phase's start and end (read only, never a check):
            card), exact launches, flash on wgmma; read: each restore's seconds and
            bytes, the calibrated store bandwidth, the engine's path and wall ms per
            event, ms a step before the first event and after the last.  The
-           checkpoints live in a temporary directory, removed at the end.
+           checkpoints live in a temporary directory, removed at the end;
+  launch_reduced  the North star's own command, in-process: `python -m
+           repro_torch.launch.train --arch qwen2_7b --reduced --plan auto --steps 8`
+           (the reduced fp32 qwen2-7b, 8 x 256 tokens), the [plan] line checked as in
+           launch_train, exact launches per step (its fp32 flash on the scalar
+           kernel), finite losses;
+  scenarios  host only: the port's ScenarioHarness over two seeds of one catalog
+           scenario, sequentially and in 2 worker processes (equal timelines), and
+           a PlannerService replay of a multi-tenant stream serially and with 4
+           threads (equal plan digests); the walls printed.
 
 Then the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.  Any failed check ends the run with a non-zero exit
@@ -134,6 +155,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -245,14 +267,16 @@ BF16_MODELS = (("zamba2_2p7b", 80), ("gemma_7b", 256))
 B_BF16, S_BF16 = 2, 256
 # the small phase's checkpoint round trips: one of each kind of parameter tree
 SMALL_CHECKPOINTS = ("qwen2_7b", "qwen3_moe_30b_a3b", "whisper_medium", "zamba2_2p7b")
+SCENARIO = "fig6c_dynamic_bw"    # the scenarios phase's catalog scenario
 SM90_HEAD_DIMS = (64, 80, 128, 256)   # 16-bit head_dims the forward runs on the wgmma kernel
 SM90_BWD_HEAD_DIMS = (64, 80, 128, 256)   # ... and the backward
 # the kernels line's entry of each flash variant, forward (every 16-bit head_dim a
-# path has is a wgmma one) and backward (likewise; the mma.sync passes, at head_dim 16
-# and 32, run on no main path)
-FLASH_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention"}
+# path has is a wgmma one; launch_reduced's float32 model runs the scalar kernel) and
+# backward (likewise; the mma.sync passes, at head_dim 16 and 32, run on no main path)
+FLASH_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention", "scalar": "flash_attention_scalar"}
 FLASH_BWD_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention_bwd",
-                             "mma_sync": "flash_attention_bwd_mma_sync"}
+                             "mma_sync": "flash_attention_bwd_mma_sync",
+                             "scalar": "flash_attention_bwd_scalar"}
 UNCOMPILED_HEAD_DIM = 96          # compiled into neither direction: must be refused
 RMSNORM_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64)]
 
@@ -276,6 +300,10 @@ TOL_FLASH_FP32, TOL_FLASH_SOFTCAP, TOL_16BIT, TOL_RMSNORM_FP32 = 2e-5, 1e-4, 2e-
 #  lse: 1e-4 in fp32 and 1e-3 in 16 bits (the wgmma kernel's exponentials are the
 #        approximate ex2 instruction).
 TOL_BWD_FP32, TOL_RMSNORM_BWD_FP32, TOL_LSE_FP32, TOL_LSE_16BIT = 1e-4, 1e-5, 1e-4, 1e-3
+# train_mesh against train, per step's loss, absolute: the same bf16 step on the
+# same card, but the wgmma backward's dq is summed by TMA reduce-adds in no fixed
+# order, so two runs part by rounding that the steps carry forward
+TOL_MESH_LOSS = 5e-3
 # The bf16 whole-model check (BF16_MODELS): a reduced model's loss in bf16 against
 # float32, absolute, and each gradient's largest difference as a share of its largest
 # magnitude and its difference's L2 norm as a share of its norm, by architecture.
@@ -755,6 +783,10 @@ def run(args, torch) -> None:
     B_LAUNCH, S_LAUNCH, LAUNCH_STEPS = 8, 256, 8
     LAUNCH_ARGV = ["--arch", "zamba2_2p7b", "--plan", "auto", "--steps", str(LAUNCH_STEPS),
                    "--global-batch", str(B_LAUNCH), "--seq", str(S_LAUNCH)]
+    # launch_reduced: the North star's command as ROADMAP gives it (the launcher's
+    # default global batch and sequence, B_LAUNCH x S_LAUNCH)
+    REDUCED_ARGV = ["--arch", "qwen2_7b", "--reduced", "--plan", "auto", "--steps",
+                    str(LAUNCH_STEPS)]
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     bf16 = torch.bfloat16
 
@@ -790,12 +822,14 @@ def run(args, torch) -> None:
             call = lambda: F.scaled_dot_product_attention(qt, kr, vr, **kw)  # noqa: E731
         return call
 
-    def timed_flash(case, entry) -> dict:
-        """The forward at one bf16 case: ms, the plain version's, SDPA's and the bound.
-        Where the window bites (a query would see a key outside it), SDPA is given
-        the window as an explicit boolean mask (`library_call` says which)."""
+    def timed_flash(case, entry, dtype=None) -> dict:
+        """The forward at one case (bf16 unless given): ms, the plain version's,
+        SDPA's and the bound.  Where the window bites (a query would see a key
+        outside it), SDPA is given the window as an explicit boolean mask
+        (`library_call` says which)."""
         B_, Sq_, Skv_, H_, KV_, hd_, causal_, window_ = case
-        q, k, v = flash_inputs(case, bf16)
+        dtype = dtype or bf16
+        q, k, v = flash_inputs(case, dtype)
         kw = dict(causal=causal_, window=window_)
         ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), 20)
         plain_ms = time_ms(lambda: ops.mha_reference(q, k, v, **kw), 3, 1)
@@ -803,8 +837,9 @@ def run(args, torch) -> None:
         mask = None if same else window_mask(Sq_, Skv_, window_)
         library_ms = time_ms(sdpa(q, k, v, causal_, mask), 20)
         flops = 4.0 * hd_ * visible_pairs(Sq_, Skv_, causal_, window_) * B_ * H_
-        bounds = {"operations": flops / PEAK_TENSOR_16BIT_FLOPS * 1e3,
-                  "bytes": 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_TENSOR_16BIT_FLOPS
+        bounds = {"operations": flops / peak * 1e3,
+                  "bytes": q.element_size() * (2 * q.numel() + k.numel() + v.numel())
                   / PEAK_BYTES_PER_S * 1e3}
         del q, k, v, mask
         return {"case": list(case), "variant": entry["variant"],
@@ -974,16 +1009,18 @@ def run(args, torch) -> None:
                   "c_codes": x_codes, "outputs_untouched": untouched}
     del q, k, v, x_out, x_lse, x_scratch
 
-    def timed_backward(case) -> dict:
-        """The backward at one bf16 training case: held against the plain version
-        (flash_bwd_case), then timed beside the plain version, the backward of SDPA
-        (given the window as a boolean mask where it bites) and the bound."""
+    def timed_backward(case, dtype=None) -> dict:
+        """The backward at one training case (bf16 unless given): held against the
+        plain version (flash_bwd_case), then timed beside the plain version, the
+        backward of SDPA (given the window as a boolean mask where it bites) and the
+        bound."""
         B_, Sq_, Skv_, H_, KV_, hd_, causal_, window_ = case
-        entry = flash_bwd_case(case, bf16)
+        dtype = dtype or bf16
+        entry = flash_bwd_case(case, dtype)
         flash_bwd_cases.append(entry)
         torch.cuda.empty_cache()
-        q, k, v = flash_inputs(case, bf16)
-        do = randn(q.shape, bf16)
+        q, k, v = flash_inputs(case, dtype)
+        do = randn(q.shape, dtype)
         o, lse = flash_mod.launch_forward(q, k, v, causal_, window_, 0.0, with_lse=True)
         ms = time_ms(lambda: flash_mod.launch_backward(
             q, k, v, o, lse, do, causal_, window_, 0.0), 10)
@@ -1005,9 +1042,10 @@ def run(args, torch) -> None:
         library_ms = time_ms(lambda: torch.autograd.grad(out, leaves, dot,
                                                          retain_graph=True), 10)
         flops = 10.0 * hd_ * pairs * B_ * H_
-        nbytes = 2.0 * (3 * q.numel() + 2 * (k.numel() + v.numel()) + 2 * o.numel()) \
-            + 4.0 * lse.numel()
-        bounds = {"operations": flops / PEAK_TENSOR_16BIT_FLOPS * 1e3,
+        nbytes = q.element_size() * (3 * q.numel() + 2 * (k.numel() + v.numel())
+                                     + 2 * o.numel()) + 4.0 * lse.numel()
+        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_TENSOR_16BIT_FLOPS
+        bounds = {"operations": flops / peak * 1e3,
                   "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
         del q, k, v, do, o, lse, leaves, out, dot, kw
         torch.cuda.empty_cache()
@@ -1102,6 +1140,16 @@ def run(args, torch) -> None:
     flash_cases.append(launch_entry)
     path_timed["launch_train"] = [timed_flash(launch_case, launch_entry)]
     launch_bwd = {"path": "launch_train", **timed_backward(launch_case)}
+    # launch_reduced's shape (the reduced float32 qwen2-7b, B_LAUNCH x S_LAUNCH): the
+    # scalar fp32 kernels, forward and backward
+    rcfg = get_config("qwen2_7b").reduced()
+    reduced_case = (B_LAUNCH, S_LAUNCH, S_LAUNCH, rcfg.n_heads, rcfg.n_kv_heads, rcfg.hd,
+                    rcfg.causal, 0)
+    reduced_entry = {"path": "launch_reduced",
+                     **flash_case(reduced_case, torch.float32, TOL_FLASH_FP32)}
+    flash_cases.append(reduced_entry)
+    reduced_fwd = timed_flash(reduced_case, reduced_entry, torch.float32)
+    reduced_bwd = {"path": "launch_reduced", **timed_backward(reduced_case, torch.float32)}
     zamba_widths = (zcfg.d_model, zcfg.ssm_expand * zcfg.d_model)
     path_rms_timed["launch_train"] = [
         timed_rmsnorm((B_LAUNCH * S_LAUNCH, w_), zcfg.norm_eps,
@@ -1249,6 +1297,33 @@ def run(args, torch) -> None:
                for key in ("max_abs_err", "max_err_share", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms", "tflops", "variant")},
             "launches_by_variant": {}, "head_dim_16": bwd_mma["head_dim_16"]},
+        # the scalar fp32 kernels, at launch_reduced's shape (its only main path)
+        "flash_attention_scalar": {
+            "name": "flash_attention_scalar", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:155",
+            "launches": 0, "dtype": "float32",
+            "shape": {"q": [B_LAUNCH, S_LAUNCH, rcfg.n_heads, rcfg.hd],
+                      "kv": [B_LAUNCH, S_LAUNCH, rcfg.n_kv_heads, rcfg.hd],
+                      "causal": rcfg.causal},
+            "tol": TOL_FLASH_FP32,
+            **{key: reduced_fwd[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "tflops",
+                                                 "variant")},
+            "launches_by_variant": {}},
+        "flash_attention_bwd_scalar": {
+            "name": "flash_attention_bwd_scalar", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:102",
+            "launches": 0, "dtype": "float32",
+            "shape": {"q": [B_LAUNCH, S_LAUNCH, rcfg.n_heads, rcfg.hd],
+                      "kv": [B_LAUNCH, S_LAUNCH, rcfg.n_kv_heads, rcfg.hd],
+                      "causal": rcfg.causal},
+            "tol": TOL_BWD_FP32, "err_is": "share of the largest magnitude (lse, dq, dk, dv)",
+            **{key: reduced_bwd[key]
+               for key in ("max_abs_err", "max_err_share", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "tflops", "variant")},
+            "launches_by_variant": {}},
     }
     report["kernels_checked"] = {
         "phase": "kernels", "ok": not FAILURES,
@@ -1686,7 +1761,9 @@ def run(args, torch) -> None:
         model_flops = 6.0 * flop_params * tokens + attn_flops
         return {
             "phase": phase, "config": tcfg.name, "dtype": tcfg.dtype,
-            "layers": L_, "layers_published": get_config(tcfg.name).n_layers,
+            "layers": L_,
+            # a reduced config is named after its arch with a "-smoke" suffix
+            "layers_published": get_config(tcfg.name.removesuffix("-smoke")).n_layers,
             "d_model": tcfg.d_model, "head_dim": tcfg.hd, "n_params": n_params,
             "flop_params": flop_params, "global_batch": batch, "seq_len": seq,
             "steps": steps, "remat": "none",
@@ -1703,13 +1780,32 @@ def run(args, torch) -> None:
             "flash_bwd_launches_by_variant": path_bwd_variants[phase]}
 
     # One model trained at full width, cut in depth: the Trainer over SyntheticLM
-    # batches of B_TRAIN x S_TRAIN tokens, remat none, every step logged.
-    def train_phase(phase: str, tcfg, steps: int) -> dict:
+    # batches of B_TRAIN x S_TRAIN tokens, remat none, every step logged.  With
+    # `ref` (the train phase's reading) the same run on a one-rank NCCL group and a
+    # (1, 1) mesh with ZeRO-3: the Trainer's mesh path, held to ref's losses.
+    def train_phase(phase: str, tcfg, steps: int, ref: dict | None = None) -> dict:
+        if ref is not None:
+            import torch.distributed as dist
+            from repro_torch.launch.mesh import make_host_mesh
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                    world_size=1, rank=0, device_id=dev)
+            try:
+                return _train_phase(phase, tcfg, steps, ref, make_host_mesh())
+            finally:
+                dist.destroy_process_group()
+                torch.cuda.empty_cache()
+        return _train_phase(phase, tcfg, steps, ref, None)
+
+    def _train_phase(phase: str, tcfg, steps: int, ref, mesh) -> dict:
         start = probe()
         t0 = time.perf_counter()
         trainer = Trainer(TrainerConfig(
             arch=tcfg, steps=steps, global_batch=B_TRAIN, seq_len=S_TRAIN,
-            ckpt_every=0, log_every=1, remat="none", seed=args.seed, device="cuda"))
+            ckpt_every=0, log_every=1, remat="none", seed=args.seed, device="cuda",
+            zero3=mesh is not None), mesh=mesh)
         state = trainer.init_state()
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
@@ -1721,11 +1817,43 @@ def run(args, torch) -> None:
         out = train_reading(phase, tcfg, trainer.model, hist, steps, B_TRAIN, S_TRAIN,
                             list(range(steps)))
         out["init_s"] = round(init_s, 2)
+        if mesh is not None:
+            out.update(mesh_reading(trainer, state, ref, out))
         emit(with_clocks(out, start))
         stop_if_failed(phase)
         del trainer, state
         torch.cuda.empty_cache()
         return out
+
+    def mesh_reading(trainer, state, ref: dict, out: dict) -> dict:
+        """train_mesh beside train: every step's loss within TOL_MESH_LOSS of train's,
+        the state DTensors in the placements the rules give; the step time, MFU and
+        peak memory of both (their difference is DTensor's host cost: a reading)."""
+        from torch.distributed.tensor import DTensor
+        from repro_torch.parallel.sharding import module_shardings
+        want = module_shardings(trainer.model, trainer.state_sh["params"])
+        placed = all(isinstance(t, DTensor) and tuple(t.placements) == want[n].placements
+                     for n, t in state["params"].items())
+        moments = all(isinstance(t, DTensor) for t in state["opt"].m.values())
+        gaps = [abs(a - b) for a, b in zip(out["losses"], ref["losses"])]
+        if not placed or not moments or len(gaps) != len(ref["losses"]) \
+                or not max(gaps) <= TOL_MESH_LOSS:
+            fail(f"{out['phase']}: state placed {placed}, moments DTensors {moments}, "
+                 f"loss gaps to train {gaps} (tolerance {TOL_MESH_LOSS})")
+        print(f"  {out['phase']}: {out['ms_per_step']:.1f} ms a step (train "
+              f"{ref['ms_per_step']:.1f}), {out['tokens_per_s']:,.0f} tokens/s "
+              f"({ref['tokens_per_s']:,.0f}), MFU {100 * out['mfu']:.2f} % "
+              f"({100 * ref['mfu']:.2f}), peak {out['peak_memory_bytes'] / 1e9:.2f} GB "
+              f"({ref['peak_memory_bytes'] / 1e9:.2f}); loss gaps to train <= "
+              f"{max(gaps):.2e}", flush=True)
+        return {"mesh": dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape)),
+                "backend": "nccl", "zero3": True, "profile_notes": list(trainer.prof.notes),
+                "loss_gaps_to_train": gaps, "loss_tol": TOL_MESH_LOSS,
+                "train_ms_per_step": ref["ms_per_step"],
+                "train_tokens_per_s": ref["tokens_per_s"], "train_mfu": ref["mfu"],
+                "train_peak_memory_bytes": ref["peak_memory_bytes"],
+                "ms_over_train": out["ms_per_step"] / ref["ms_per_step"],
+                "host_ms_over_train": out["ms_per_step"] - ref["ms_per_step"]}
 
     class Tee(io.TextIOBase):
         """Standard output, also kept in a buffer (a phase reads what its entry
@@ -1746,13 +1874,11 @@ def run(args, torch) -> None:
     # then the Trainer; the counts at 0 just before main() and read just after.
     # Beside the measured step, the planner's prediction for the same model on one
     # H100 (a reading, never a check).
-    def launch_train_phase() -> dict:
+    def launch_train_phase(phase: str, lcfg, argv: list) -> dict:
         from repro_torch.core import (ParallelPlan, hetero_cluster, plan_hybrid,
                                       simulate_training_step)
         from repro_torch.launch import train as launch_train
-        phase = "launch_train"
         start = probe()
-        lcfg = get_config("zamba2_2p7b")
         ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_launch_")
         try:
             torch.cuda.reset_peak_memory_stats()
@@ -1761,7 +1887,7 @@ def run(args, torch) -> None:
             ops.reset_launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee):
-                trainer = launch_train.main(LAUNCH_ARGV + ["--ckpt-dir", ckpt_dir])
+                trainer = launch_train.main(argv + ["--ckpt-dir", ckpt_dir])
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
             out = train_reading(phase, lcfg, trainer.model, trainer.history, LAUNCH_STEPS,
@@ -1787,7 +1913,7 @@ def run(args, torch) -> None:
                  f"{res.plan.describe()} and its predicted step "
                  f"{res.predicted.step_time * 1e3:.1f} ms")
         out.update({
-            "argv": LAUNCH_ARGV, "main_wall_s": wall_s,
+            "argv": argv, "main_wall_s": wall_s,
             "plan": trainer.plan.to_json() if trainer.plan else None,
             "plan_line": printed,
             "planned_on": f"hetero_cluster({{'H100': {max(torch.cuda.device_count(), 4)}}})",
@@ -1915,11 +2041,64 @@ def run(args, torch) -> None:
         torch.cuda.empty_cache()
         return out
 
+    # The port's scenario harness and planner service, host only: a catalog
+    # scenario's two seeds replayed sequentially and in 2 worker processes (spawned:
+    # they import neither torch nor JAX), and a multi-tenant stream through the
+    # planner service serially and threaded.
+    def scenarios_phase() -> dict:
+        from repro_torch.core import ModelDesc
+        from repro_torch.scenarios import ScenarioHarness, build_tenant, to_job_specs
+        from repro_torch.service import PlannerService
+        phase = "scenarios"
+        start = probe()
+        harness = ScenarioHarness(
+            ModelDesc("tiny", n_layers=8, d_model=512, n_heads=8, n_kv_heads=8, d_ff=2048,
+                      vocab=32000), global_batch=32, seq=512, max_candidates=24)
+        items = [(SCENARIO, 0), (SCENARIO, 1)]
+        walls, reports = {}, {}
+        for how, kw in (("sequential", {"parallel": False}),
+                        ("processes_2", {"parallel": True, "max_workers": 2})):
+            t0 = time.perf_counter()
+            reports[how] = harness.run_many(items, **kw)
+            walls[how] = time.perf_counter() - t0
+        same = all(a.adapted.timeline == b.adapted.timeline
+                   and a.static.timeline == b.static.timeline and a.replans == b.replans
+                   for a, b in zip(reports["sequential"], reports["processes_2"]))
+        digests = {}
+        for workers in (1, 4):
+            topo, arrivals, trace = build_tenant("multi_tenant_small", seed=0)
+            svc = PlannerService(topo, workers=workers, max_candidates=48)
+            t0 = time.perf_counter()
+            rep_ = svc.replay(to_job_specs(arrivals, gpus_per_node=4), list(trace.to_events()))
+            walls[f"service_workers_{workers}"] = time.perf_counter() - t0
+            digests[workers] = rep_
+        svc_same = digests[1].plan_digests == digests[4].plan_digests and \
+            digests[1].replans == digests[4].replans > 0
+        if not same or not svc_same or len(reports["sequential"]) != 2:
+            fail(f"{phase}: harness timelines equal {same}; service digests equal and "
+                 f"re-planned {svc_same}")
+        out = {"phase": phase, "scenario": SCENARIO, "seeds": [0, 1],
+               "timelines_equal": same, "service_digests_equal": svc_same,
+               "replans": [r.replans for r in reports["sequential"]],
+               "service": {"admitted": digests[1].admitted,
+                           "cold_searches": digests[1].cold_searches,
+                           "cache_hits": digests[1].cache_hits,
+                           "replans": digests[1].replans},
+               "walls_s": walls}
+        print(f"  {phase}: " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()),
+              flush=True)
+        emit(with_clocks(out, start))
+        stop_if_failed(phase)
+        return out
+
     if not args.skip_train:
         # qwen2-7b at 8 of 28 layers: at 12 bytes a parameter (bf16 parameters and
         # gradients, fp32 moments) the full depth's 7.07 G would need 85 GB
-        report["train"] = train_phase("train", dataclasses.replace(cfg, n_layers=TRAIN_LAYERS),
-                                      steps=6)
+        train_cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+        report["train"] = train_phase("train", train_cfg, steps=6)
+        # the same run through the Trainer's mesh path (DTensor, ZeRO-3)
+        report["train_mesh"] = train_phase("train_mesh", train_cfg, steps=6,
+                                           ref=report["train"])
         # zamba2-2.7b at 6 of 54 layers, two cycles of (mamba, mamba, shared_attn): 4
         # Mamba2 layers and 2 occurrences of the shared block, whose attention is
         # head_dim 80 on both flash directions
@@ -1928,8 +2107,12 @@ def run(args, torch) -> None:
                                                n_layers=ZAMBA_TRAIN_LAYERS), steps=4)
         # zamba2-2.7b at full width and depth through the launcher (1.74 G parameters,
         # ~21 GB with AdamW), then the planner-driven Trainer at train_zamba's size
-        report["launch_train"] = launch_train_phase()
+        report["launch_train"] = launch_train_phase("launch_train", get_config("zamba2_2p7b"),
+                                                    LAUNCH_ARGV)
         report["train_dynamic"] = train_dynamic_phase()
+        report["launch_reduced"] = launch_train_phase(
+            "launch_reduced", get_config("qwen2_7b").reduced(), REDUCED_ARGV)
+        report["scenarios"] = scenarios_phase()
 
     # ------------------------------- serve_moe, serve_vlm, serve_audio, serve_gemma
     # The other families at full width and depth, each freed before the next

@@ -11,7 +11,10 @@ package writes, the other restores.
 The tree is the reference's layout (stacked ``pos{p}`` leaves):
 ``models.convert.export_jax_train_state`` makes it from the port's train state,
 ``models.convert.load_jax_train_state`` takes it back.  Leaves may be torch
-tensors (any device) or numpy arrays.
+tensors (any device), numpy arrays, or DTensors, which are written whole
+(gathered from their shards).  ``restore(..., shardings=...)`` places every
+restored leaf under a sharding, so that a state checkpointed on one layout
+reshards onto another.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.axes import distribute
 
 Pytree = Any
 _SEP = "|"
@@ -59,6 +65,8 @@ def _to_numpy(leaf, copy: bool = False) -> np.ndarray:
     """A leaf as a host array (bf16 as float32); ``copy``: never a view of it."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         if leaf.dtype == torch.bfloat16:     # npz has no native bf16
             leaf = leaf.float()
         return leaf.to("cpu", copy=copy).numpy()
@@ -115,10 +123,15 @@ class AsyncSaver:
             raise err
 
 
-def restore(path: str | Path, like: Pytree) -> tuple[Pytree, dict]:
+def restore(path: str | Path, like: Pytree, *,
+            shardings: Pytree = None) -> tuple[Pytree, dict]:
     """Restore into the structure of ``like``: each leaf takes ``like``'s dtype
     (a torch leaf gives a CPU tensor, a numpy leaf a numpy array).  Raises on a
-    missing key or a shape that differs."""
+    missing key or a shape that differs.
+
+    ``shardings``: a tree of ``like``'s structure whose leaves are
+    ``parallel.axes.NamedSharding`` objects; each restored leaf is then a DTensor
+    under its sharding (the elastic reshard onto a new layout)."""
     path = Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
     with np.load(path / "arrays.npz") as data:
@@ -132,6 +145,8 @@ def restore(path: str | Path, like: Pytree) -> tuple[Pytree, dict]:
                 return torch.from_numpy(np.array(arr)).to(leaf.dtype)
             return arr.astype(leaf.dtype)
         tree = _map(take, like)
+    if shardings is not None:
+        tree = distribute(tree, shardings)
     return tree, manifest
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (flash_attention_bwd_reference,
@@ -114,6 +115,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and any ``Sq`` is taken (cross-attention to a shorter memory).
     Differentiable in q, k and v on either device.
     """
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("flash_attention takes each rank's local tensors: call it on a "
+                        "DTensor through local_map (models.layers.mha)")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")

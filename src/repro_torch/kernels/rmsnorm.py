@@ -22,6 +22,7 @@ import ctypes
 import threading
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import rmsnorm_bwd_reference, rmsnorm_reference
@@ -59,6 +60,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., d); w: (d,).  Returns x's shape and dtype.  Differentiable in x
     and w on either device."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        raise TypeError("rmsnorm takes each rank's local tensors: call it on a "
+                        "DTensor through local_map (models.layers.rms_norm)")
     if not x.is_cuda:
         if w.shape != x.shape[-1:]:
             raise ValueError(f"rmsnorm: w {tuple(w.shape)} does not match x "

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import OptState
@@ -34,12 +35,12 @@ def _leaves(tree, prefix=""):
     return {prefix: tree}
 
 
-def _stacked(path: str) -> bool:
+def is_stacked(path: str) -> bool:
     """Whether a reference leaf carries a leading layer dim."""
     return path.startswith(("pos", "encoder."))
 
 
-def _target_names(model: LM) -> dict[str, list[str]]:
+def target_names(model: LM) -> dict[str, list[str]]:
     """Reference leaf path -> the names of the module's parameters it holds, one
     per slice of its leading dim (a single one for unstacked leaves)."""
     cfg = model.cfg
@@ -62,7 +63,7 @@ def _target_names(model: LM) -> dict[str, list[str]]:
 def _targets(model: LM) -> dict[str, list[torch.nn.Parameter]]:
     """Reference leaf path -> the module's parameters it holds."""
     return {path: [model.get_parameter(n) for n in names]
-            for path, names in _target_names(model).items()}
+            for path, names in target_names(model).items()}
 
 
 def _nest(flat: dict) -> dict:
@@ -78,11 +79,16 @@ def _nest(flat: dict) -> dict:
 
 
 def _leaf_tensor(leaves: dict, path: str, want: tuple) -> torch.Tensor:
-    """The leaf at dotted ``path`` (numpy array or tensor) as float32 on the CPU;
-    raises if its shape is not ``want``."""
+    """The leaf at dotted ``path`` (numpy array or tensor) as float32 on the CPU,
+    or a DTensor leaf as a float32 DTensor where it lies; raises if its shape is
+    not ``want``."""
     arr = leaves[path]
-    t = arr.detach().float().cpu() if isinstance(arr, torch.Tensor) else \
-        torch.from_numpy(np.array(arr, dtype=np.float32))
+    if isinstance(arr, DTensor):
+        t = arr.detach().float()
+    elif isinstance(arr, torch.Tensor):
+        t = arr.detach().float().cpu()
+    else:
+        t = torch.from_numpy(np.array(arr, dtype=np.float32))
     if tuple(t.shape) != want:
         raise ValueError(f"{path} has shape {tuple(t.shape)}, expected {want}")
     return t
@@ -100,7 +106,7 @@ def load_jax_params(model: LM, params_np: dict) -> LM:
         raise KeyError(f"load_jax_params: missing leaves {missing}, "
                        f"unexpected leaves {extra}")
     for path, params in targets.items():
-        stacked = _stacked(path)
+        stacked = is_stacked(path)
         want = ((len(params),) if stacked else ()) + tuple(params[0].shape)
         src = _leaf_tensor(leaves, path, want)
         for c, prm in enumerate(params):
@@ -114,9 +120,9 @@ def export_jax_tree(model: LM, named: dict) -> dict:
     or moments) -> the reference's tree of float32 numpy arrays (``pos{p}`` leaves
     stacked)."""
     flat = {}
-    for path, names in _target_names(model).items():
+    for path, names in target_names(model).items():
         arrs = [named[n].detach().float().cpu().numpy() for n in names]
-        flat[path] = np.stack(arrs) if _stacked(path) else arrs[0]
+        flat[path] = np.stack(arrs) if is_stacked(path) else arrs[0]
     return _nest(flat)
 
 
@@ -129,19 +135,22 @@ def export_jax_params(model: LM) -> dict:
 @torch.no_grad()
 def _import_moments(model: LM, tree) -> dict:
     """A reference moment tree -> float32 tensors keyed by parameter name, on the
-    model's device."""
-    leaves, targets = _leaves(tree), _target_names(model)
+    model's device (DTensor leaves: DTensors in the leaf's placements, less its
+    stacked dim)."""
+    leaves, targets = _leaves(tree), target_names(model)
     if set(leaves) != set(targets):
         raise KeyError(f"moments: missing leaves {sorted(set(targets) - set(leaves))}, "
                        f"unexpected leaves {sorted(set(leaves) - set(targets))}")
     out = {}
     for path, names in targets.items():
         params = [model.get_parameter(n) for n in names]
-        stacked = _stacked(path)
+        stacked = is_stacked(path)
         src = _leaf_tensor(leaves, path, ((len(names),) if stacked else ())
                            + tuple(params[0].shape))
         for c, (n, prm) in enumerate(zip(names, params)):
-            out[n] = (src[c] if stacked else src).to(prm.device, torch.float32).clone()
+            t = src[c] if stacked else src
+            out[n] = t.clone() if isinstance(t, DTensor) else \
+                t.to(prm.device, torch.float32).clone()
     return out
 
 
@@ -155,7 +164,9 @@ def load_jax_train_state(model: LM, tree: dict) -> dict:
     opt = tree["opt"]
     params = dict(model.named_parameters())
     dev = next(iter(params.values())).device
-    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32, device=dev)
+    step = int(opt.step.full_tensor() if isinstance(opt.step, DTensor)
+               else np.asarray(opt.step))
+    step = torch.tensor(step, dtype=torch.int32, device=dev)
     return {"params": params,
             "opt": OptState(_import_moments(model, opt.m), _import_moments(model, opt.v),
                             step)}
@@ -176,9 +187,9 @@ def jax_train_state_like(model: LM) -> dict:
     ``like`` that ``checkpoint.store.restore`` casts to."""
     def tree(dtype=None):
         flat = {}
-        for path, names in _target_names(model).items():
+        for path, names in target_names(model).items():
             prm = model.get_parameter(names[0])
-            shape = ((len(names),) if _stacked(path) else ()) + tuple(prm.shape)
+            shape = ((len(names),) if is_stacked(path) else ()) + tuple(prm.shape)
             flat[path] = torch.empty(shape, dtype=dtype or prm.dtype, device="meta")
         return _nest(flat)
     return {"params": tree(),

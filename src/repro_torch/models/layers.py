@@ -6,13 +6,18 @@ cross-attention to a memory (``"cross_attn"`` blocks) and the recurrent blocks
 (Mamba2, mLSTM, sLSTM).  Parameters are
 declared as :class:`ParamDef` trees with the reference's names, shapes and init
 rule; :func:`materialize` turns a def-tree into ``nn.Parameter``s on an
-explicit device.  The reference's ``shard(...)`` annotations have no
-counterpart on one card and are dropped until the parallel layer is ported.
+explicit device.  The reference's ``shard(...)`` annotations sit at the same
+sites (``parallel.axes.shard``): no-ops on one device, redistributions of the
+DTensor activations when a mesh is active (``use_rules``).
 
 Where the kernels sit: on a CUDA tensor :func:`rms_norm` (``gemma_style=False``)
 goes through ``kernels.ops.rmsnorm``, and :func:`mha` called WITHOUT explicit
 positions goes through ``kernels.ops.flash_attention``; both launch the
-hand-written kernel or raise.  :func:`mha` WITH explicit positions (the decode
+hand-written kernel or raise.  On DTensors (a step on a mesh) both calls go
+through ``local_map``: the kernel runs on each rank's shard (RMSNorm with the
+normalised dim whole, attention with batch and heads sharded and head_dim
+whole), and a CUDA shard reaches the kernel as any CUDA tensor does.
+:func:`mha` WITH explicit positions (the decode
 path, whose mask differs per batch row) is plain tensor code on either device:
 that is a routing decision, not a fallback.  Cross-attention calls :func:`mha`
 without positions, so it runs on the kernel at prefill and decode alike.  The
@@ -24,6 +29,7 @@ time): none of it is a Pallas kernel in the reference either.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Mapping, NamedTuple
@@ -32,11 +38,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.axes import AxisRules, active_rules, shard
 
 NEG_INF = -1e30
+Axes = tuple[str | None, ...]
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +57,7 @@ NEG_INF = -1e30
 @dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    axes: Axes                       # logical axis names (parallel.axes)
     scale: float | None = None       # None => 1/sqrt(fan_in) (first dim)
     init: str = "normal"             # normal | zeros | ones
 
@@ -70,7 +81,8 @@ def flatten_defs(defs, prefix: str = "") -> list[tuple[str, ParamDef]]:
 def stack_defs(defs, n: int) -> Any:
     """Prefix every def with a stacked layer dim (the reference's layout of
     ``pos{p}``; used by ``convert`` and ``n_params``)."""
-    return _map_defs(lambda d: ParamDef((n, *d.shape), d.scale, d.init), defs)
+    return _map_defs(lambda d: ParamDef((n, *d.shape), ("layers", *d.axes),
+                                        d.scale, d.init), defs)
 
 
 def materialize(defs, dtype: torch.dtype, device) -> Any:
@@ -112,6 +124,8 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
              *, gemma_style: bool = False) -> torch.Tensor:
     if not gemma_style:
         # CUDA: the hand-written kernel (or an error); CPU: its plain version
+        if isinstance(x, DTensor):
+            return _rmsnorm_local(x, w, eps)
         return ops.rmsnorm(x.contiguous(), w, eps=eps)
     # y * (1 + w): no config passes this today, so it stays plain tensor code
     # on either device until a config turns it on and the kernel grows it.
@@ -119,6 +133,21 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps) * (1.0 + w.float())
     return y.to(x.dtype)
+
+
+def _rmsnorm_local(x: DTensor, w: torch.Tensor, eps: float) -> DTensor:
+    """:func:`rms_norm` on each rank's shard of x: rows sharded as x is, the
+    normalised last dim whole (a shard of it, or a pending sum, is gathered
+    first).  w's gradient is a partial sum over every mesh dim that splits the
+    rows."""
+    xp = tuple(Replicate() if p.is_partial() or (p.is_shard() and p.dim == x.ndim - 1)
+               else p for p in x.placements)
+    wp = (Replicate(),) * len(xp)
+    wg = tuple(Partial() if p.is_shard() else Replicate() for p in xp)
+    fn = local_map(lambda a, b: ops.rmsnorm(a.contiguous(), b, eps=eps),
+                   out_placements=list(xp), in_placements=(xp, wp),
+                   in_grad_placements=(xp, wg), redistribute_inputs=True)
+    return fn(x, w)
 
 
 def rope_tables(positions: torch.Tensor, hd: int, theta: float):
@@ -161,19 +190,19 @@ def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
 def attn_defs(cfg) -> dict:
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     defs = {
-        "ln": ParamDef((d,), init="ones"),
-        "wq": ParamDef((d, H, hd)),
-        "wk": ParamDef((d, KV, hd)),
-        "wv": ParamDef((d, KV, hd)),
-        "wo": ParamDef((H, hd, d)),
+        "ln": ParamDef((d,), ("embed",), init="ones"),
+        "wq": ParamDef((d, H, hd), ("fsdp", "heads", "head_dim")),
+        "wk": ParamDef((d, KV, hd), ("fsdp", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, KV, hd), ("fsdp", "kv_heads", "head_dim")),
+        "wo": ParamDef((H, hd, d), ("heads", "head_dim", "fsdp")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((H, hd), init="zeros")
-        defs["bk"] = ParamDef((KV, hd), init="zeros")
-        defs["bv"] = ParamDef((KV, hd), init="zeros")
+        defs["bq"] = ParamDef((H, hd), ("heads", "head_dim"), init="zeros")
+        defs["bk"] = ParamDef((KV, hd), ("kv_heads", "head_dim"), init="zeros")
+        defs["bv"] = ParamDef((KV, hd), ("kv_heads", "head_dim"), init="zeros")
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((hd,), init="ones")
-        defs["k_norm"] = ParamDef((hd,), init="ones")
+        defs["q_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
+        defs["k_norm"] = ParamDef((hd,), ("head_dim",), init="ones")
     return defs
 
 
@@ -206,6 +235,9 @@ def _qkv(p: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)  # one table for q, k
     q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     G = H // KV
     q = q.reshape(*q.shape[:2], KV, G, hd)
     return q, k, v
@@ -260,8 +292,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     B, Sq, KV, G, hd = q.shape
     Skv = k.shape[1]
     if q_positions is None and kv_positions is None:
-        return ops.flash_attention(q.reshape(B, Sq, KV * G, hd), k, v,
-                                   causal=causal, window=window,
+        q = q.reshape(B, Sq, KV * G, hd)
+        if isinstance(q, DTensor):
+            return _flash_local(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     dev = q.device
     if q_positions is None:
@@ -274,6 +309,27 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                       q_chunk=max(1, min(q_chunk, Sq)), softcap=softcap)
 
 
+def _flash_local(q: DTensor, k: DTensor, v: DTensor, **mask) -> DTensor:
+    """The attention kernel on each rank's shard: batch and heads sharded as the
+    active rules put them (``"batch"``, ``"heads"`` / ``"kv_heads"``), sequence
+    and head_dim whole.  Where the rules shard q's heads but not k's (kv heads
+    that do not divide the model axis), k and v are first repeated to q's head
+    count, as the reference's ``mha`` repeats them before it shards."""
+    mesh, rules = active_rules() or (q.device_mesh, AxisRules())
+    qp = rules.placements(("batch", None, "heads", None), q.shape, mesh)
+    kp = rules.placements(("batch", None, "kv_heads", None), k.shape, mesh)
+    if kp != qp:
+        B, Skv, KV, hd = k.shape
+        G = q.shape[2] // KV
+        k, v = (t[:, :, :, None].expand(B, Skv, KV, G, hd).reshape(B, Skv, KV * G, hd)
+                for t in (k, v))
+        kp = rules.placements(("batch", None, "heads", None), k.shape, mesh)
+    fn = local_map(lambda a, b, c: ops.flash_attention(a, b, c, **mask),
+                   out_placements=list(qp), in_placements=(qp, kp, kp),
+                   in_grad_placements=(qp, kp, kp), redistribute_inputs=True)
+    return fn(q, k, v)
+
+
 def attn_block(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                window: int = 0, causal: bool | None = None) -> torch.Tensor:
     """Pre-norm self-attention residual block (no FFN)."""
@@ -281,7 +337,7 @@ def attn_block(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     q, k, v = _qkv(p, cfg, h, positions)
     o = mha(q, k, v, causal=cfg.causal if causal is None else causal,
             window=window, q_chunk=cfg.attn_q_chunk)
-    return x + _proj_out(o, p["wo"])
+    return x + shard(_proj_out(o, p["wo"]), "batch", "seq", "embed")
 
 
 def attn_decode(p, cfg, x: torch.Tensor, cache_k: torch.Tensor,
@@ -325,11 +381,11 @@ def attn_decode(p, cfg, x: torch.Tensor, cache_k: torch.Tensor,
 
 def ffn_defs(cfg, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    defs = {"ln": ParamDef((d,), init="ones"),
-            "w_up": ParamDef((d, f)),
-            "w_down": ParamDef((f, d))}
+    defs = {"ln": ParamDef((d,), ("embed",), init="ones"),
+            "w_up": ParamDef((d, f), ("fsdp", "mlp")),
+            "w_down": ParamDef((f, d), ("mlp", "fsdp"))}
     if cfg.ffn_kind in ("swiglu", "geglu"):
-        defs["w_gate"] = ParamDef((d, f))
+        defs["w_gate"] = ParamDef((d, f), ("fsdp", "mlp"))
     return defs
 
 
@@ -340,7 +396,8 @@ def ffn_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
         up = up * _act(cfg.ffn_kind, h @ p["w_gate"])
     else:
         up = _act(cfg.ffn_kind, up)
-    return x + up @ p["w_down"]
+    up = shard(up, "batch", "seq", "mlp")
+    return x + shard(up @ p["w_down"], "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -350,11 +407,11 @@ def ffn_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
 
 def moe_defs(cfg) -> dict:
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"ln": ParamDef((d,), init="ones"),
-            "router": ParamDef((d, E)),
-            "w_gate": ParamDef((E, d, f)),
-            "w_up": ParamDef((E, d, f)),
-            "w_down": ParamDef((E, f, d))}
+    return {"ln": ParamDef((d,), ("embed",), init="ones"),
+            "router": ParamDef((d, E), ("fsdp", "experts")),
+            "w_gate": ParamDef((E, d, f), ("experts", "expert_in", "expert_mlp")),
+            "w_up": ParamDef((E, d, f), ("experts", "expert_in", "expert_mlp")),
+            "w_down": ParamDef((E, f, d), ("experts", "expert_mlp", "expert_in"))}
 
 
 class MoERoute(NamedTuple):
@@ -385,20 +442,69 @@ def moe_route(p, cfg, h: torch.Tensor) -> MoERoute:
     if t % G:
         G = 1
     tg = t // G
-    probs = torch.softmax((h.reshape(G, tg, d) @ p["router"]).float(), dim=-1)
-    gate, idx = torch.topk(probs, K, dim=-1)                 # (G, tg, K)
-    gate = (gate / gate.sum(-1, keepdim=True)).to(h.dtype)
     C = min(max(int(K * tg * cfg.moe_capacity_factor / E), 1), tg)
+    logits = (h.reshape(G, tg, d) @ p["router"]).float()
+    plan = _group_local(_moe_plan, 4, logits, E=E, K=K, C=C, dtype=h.dtype)
+    return MoERoute(G, C, *plan)
+
+
+def _moe_plan(logits: torch.Tensor, *, E: int, K: int, C: int, dtype):
+    """:func:`moe_route`'s plan from the router logits (G, tg, E), group by
+    group: (expert, token, slot, gate), each (G, tg*K) sorted by expert."""
+    G, tg, _ = logits.shape
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, K, dim=-1)                 # (G, tg, K)
+    gate = (gate / gate.sum(-1, keepdim=True)).to(dtype)
     flat_e = idx.reshape(G, tg * K)
     order = torch.argsort(flat_e, dim=1, stable=True)
     se = flat_e.gather(1, order)
-    stok = torch.arange(tg, device=h.device).repeat_interleave(K)[order]
+    stok = torch.arange(tg, device=logits.device).repeat_interleave(K)[order]
     sg = gate.reshape(G, tg * K).gather(1, order)
     first = torch.searchsorted(
-        se, torch.arange(E, device=h.device, dtype=se.dtype).expand(G, E).contiguous())
-    rank = torch.arange(tg * K, device=h.device)[None] - first.gather(1, se)
+        se, torch.arange(E, device=logits.device, dtype=se.dtype).expand(G, E).contiguous())
+    rank = torch.arange(tg * K, device=logits.device)[None] - first.gather(1, se)
     slot = torch.where(rank < C, se * C + rank, torch.full_like(se, E * C))
-    return MoERoute(G, C, se, stok, slot, sg)
+    return se, stok, slot, sg
+
+
+def _group_local(fn, n_out: int, *args, **kw):
+    """``fn(*args, **kw)`` for tensors whose leading dim is the MoE's token
+    groups, which no step mixes.  On DTensors it runs on each rank's groups
+    (``local_map``: the groups sharded as the first argument has them, every
+    other dim whole), since the routing's sort, search and scatter have no
+    sharding rules of their own."""
+    if not isinstance(args[0], DTensor):
+        return fn(*args, **kw)
+    gp = [p if p.is_shard(0) else Replicate() for p in args[0].placements]
+    ins = tuple(gp if isinstance(a, torch.Tensor) else None for a in args)
+    outs = tuple([gp] * n_out) if n_out > 1 else gp
+    return local_map(functools.partial(fn, **kw), out_placements=outs,
+                     in_placements=ins, in_grad_placements=ins,
+                     redistribute_inputs=True)(*args)
+
+
+def _moe_dispatch(ht: torch.Tensor, stok: torch.Tensor, slot: torch.Tensor, *,
+                  n_slots: int) -> torch.Tensor:
+    """Gather each group's tokens (G, tg, d) into its (n_slots, d) expert
+    slots; the drop bin's row is discarded."""
+    G, _, d = ht.shape
+    rows = torch.arange(G, device=ht.device)[:, None]
+    buf = ht.new_zeros((G, n_slots + 1, d))
+    buf[rows, slot] = ht[rows, stok]
+    return buf[:, :-1]
+
+
+def _moe_combine(yg: torch.Tensor, stok: torch.Tensor, slot: torch.Tensor,
+                 sg: torch.Tensor, *, tg: int) -> torch.Tensor:
+    """Each group's expert outputs (G, n_slots, d) back to its tokens (G, tg, d),
+    weighted by the gates; the drop bin adds nothing."""
+    G, _, d = yg.shape
+    rows = torch.arange(G, device=yg.device)[:, None]
+    yg = torch.cat([yg, yg.new_zeros((G, 1, d))], dim=1)
+    contrib = yg[rows, slot] * sg[..., None]
+    out = yg.new_zeros((G * tg, d)).index_add(
+        0, (rows * tg + stok).reshape(-1), contrib.reshape(-1, d))
+    return out.reshape(G, tg, d)
 
 
 def moe_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -411,20 +517,17 @@ def moe_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     G, C, _, stok, slot, sg = moe_route(p, cfg, h)
     tg = B * S // G
-    ht = h.reshape(G, tg, d)
-    rows = torch.arange(G, device=x.device)[:, None]
-    # gather into per-group (E*C + 1, d) buffers; the drop bin's row is discarded
-    buf = x.new_zeros((G, E * C + 1, d))
-    buf[rows, slot] = ht[rows, stok]
-    xe = buf[:, :-1].reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    ht = shard(h.reshape(G, tg, d), "batch", None, "embed")
+    buf = _group_local(_moe_dispatch, 1, ht, stok, slot, n_slots=E * C)
+    xe = buf.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    xe = shard(xe, "experts", "batch", "embed")
     a = _act(cfg.ffn_kind, torch.bmm(xe, p["w_gate"]))
     ye = torch.bmm(torch.bmm(xe, p["w_up"]) * a, p["w_down"])      # (E, G*C, d)
+    ye = shard(ye, "experts", "batch", "embed")
     yg = ye.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
-    yg = torch.cat([yg, x.new_zeros((G, 1, d))], dim=1)
-    contrib = yg[rows, slot] * sg[..., None]
-    out = x.new_zeros((G * tg, d)).index_add(
-        0, (rows * tg + stok).reshape(-1), contrib.reshape(-1, d))
-    return x + out.reshape(B, S, d)
+    yg = shard(yg, "batch", None, "embed")
+    out = _group_local(_moe_combine, 1, yg, stok, slot, sg, tg=tg)
+    return x + shard(out.reshape(B, S, d), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -483,18 +586,18 @@ def mamba_defs(cfg) -> dict:
     e = cfg.ssm_expand * d
     nh = e // cfg.ssm_head_dim
     N, W = cfg.ssm_state, cfg.ssm_conv_width
-    return {"ln": ParamDef((d,), init="ones"),
-            "w_z": ParamDef((d, e)),
-            "w_x": ParamDef((d, e)),
-            "w_B": ParamDef((d, N)),
-            "w_C": ParamDef((d, N)),
-            "w_dt": ParamDef((d, nh)),
-            "conv_w": ParamDef((W, e), scale=0.5),
-            "A_log": ParamDef((nh,), init="zeros"),
-            "D": ParamDef((nh,), init="ones"),
-            "dt_bias": ParamDef((nh,), init="zeros"),
-            "gn": ParamDef((e,), init="ones"),
-            "w_out": ParamDef((e, d))}
+    return {"ln": ParamDef((d,), ("embed",), init="ones"),
+            "w_z": ParamDef((d, e), ("fsdp", "mlp")),
+            "w_x": ParamDef((d, e), ("fsdp", "mlp")),
+            "w_B": ParamDef((d, N), ("fsdp", "state")),
+            "w_C": ParamDef((d, N), ("fsdp", "state")),
+            "w_dt": ParamDef((d, nh), ("fsdp", "heads")),
+            "conv_w": ParamDef((W, e), ("conv", "mlp"), scale=0.5),
+            "A_log": ParamDef((nh,), ("heads",), init="zeros"),
+            "D": ParamDef((nh,), ("heads",), init="ones"),
+            "dt_bias": ParamDef((nh,), ("heads",), init="zeros"),
+            "gn": ParamDef((e,), ("mlp",), init="ones"),
+            "w_out": ParamDef((e, d), ("mlp", "fsdp"))}
 
 
 def _mamba_scan_seq(x, B_in, C_in, dt, A_log, D, hd, *, h0=None):
@@ -595,7 +698,7 @@ def mamba_block(p, cfg, x: torch.Tensor, *, state=None, conv_state=None):
     W = cfg.ssm_conv_width
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     z = h @ p["w_z"]
-    xin = h @ p["w_x"]
+    xin = shard(h @ p["w_x"], "batch", "seq", "mlp")
     # causal depthwise conv
     if conv_state is not None:                             # decode: (B, W-1, e)
         window = torch.cat([conv_state, xin], dim=1)       # (B, W, e)
@@ -613,7 +716,7 @@ def mamba_block(p, cfg, x: torch.Tensor, *, state=None, conv_state=None):
                            p["A_log"], p["D"], hd, h0=state)
     y = y.reshape(Bb, -1, e) * F.silu(z)
     y = rms_norm(y, p["gn"], cfg.norm_eps)
-    return x + y @ p["w_out"], h_fin, new_conv
+    return x + shard(y @ p["w_out"], "batch", "seq", "embed"), h_fin, new_conv
 
 
 # ---------------------------------------------------------------------------
@@ -625,15 +728,15 @@ def mlstm_defs(cfg) -> dict:
     d = cfg.d_model
     e = 2 * d
     H = cfg.n_heads
-    return {"ln": ParamDef((d,), init="ones"),
-            "w_up": ParamDef((d, e)),                      # pre up-projection
-            "wq": ParamDef((e, e)),
-            "wk": ParamDef((e, e)),
-            "wv": ParamDef((e, e)),
-            "w_i": ParamDef((e, H)),
-            "w_f": ParamDef((e, H)),
-            "w_o": ParamDef((e, e)),
-            "w_down": ParamDef((e, d))}
+    return {"ln": ParamDef((d,), ("embed",), init="ones"),
+            "w_up": ParamDef((d, e), ("fsdp", "mlp")),      # pre up-projection
+            "wq": ParamDef((e, e), ("mlp", "mlp")),
+            "wk": ParamDef((e, e), ("mlp", "mlp")),
+            "wv": ParamDef((e, e), ("mlp", "mlp")),
+            "w_i": ParamDef((e, H), ("mlp", "heads")),
+            "w_f": ParamDef((e, H), ("mlp", "heads")),
+            "w_o": ParamDef((e, e), ("mlp", "mlp")),
+            "w_down": ParamDef((e, d), ("mlp", "fsdp"))}
 
 
 def _mlstm_chunkwise(q, k, v, it, ft, state, *, chunk: int):
@@ -738,12 +841,13 @@ def slstm_defs(cfg) -> dict:
     H = cfg.n_heads
     hd = d // H
     f = int(4 * d / 3 / 64) * 64 or 64
-    return {"ln": ParamDef((d,), init="ones"),
-            "w_zifo": ParamDef((d, 4 * d)),
-            "r_zifo": ParamDef((H, hd, 4 * hd), scale=0.1),
-            "gn": ParamDef((d,), init="ones"),
-            "w_up": ParamDef((d, 2 * f)),
-            "w_down": ParamDef((f, d))}
+    return {"ln": ParamDef((d,), ("embed",), init="ones"),
+            "w_zifo": ParamDef((d, 4 * d), ("fsdp", "mlp")),
+            "r_zifo": ParamDef((H, hd, 4 * hd), ("heads", "head_dim", None),
+                               scale=0.1),
+            "gn": ParamDef((d,), ("embed",), init="ones"),
+            "w_up": ParamDef((d, 2 * f), ("fsdp", "mlp")),
+            "w_down": ParamDef((f, d), ("mlp", "fsdp"))}
 
 
 def slstm_block(p, cfg, x: torch.Tensor, *, state=None):
@@ -791,12 +895,12 @@ def slstm_block(p, cfg, x: torch.Tensor, *, state=None):
 
 def cross_attn_defs(cfg) -> dict:
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
-    return {"ln": ParamDef((d,), init="ones"),
-            "wq": ParamDef((d, H, hd)),
-            "wk": ParamDef((d, KV, hd)),
-            "wv": ParamDef((d, KV, hd)),
-            "wo": ParamDef((H, hd, d)),
-            "gate": ParamDef((1,), init="zeros")}     # llama-vision's tanh gate
+    return {"ln": ParamDef((d,), ("embed",), init="ones"),
+            "wq": ParamDef((d, H, hd), ("fsdp", "heads", "head_dim")),
+            "wk": ParamDef((d, KV, hd), ("fsdp", "kv_heads", "head_dim")),
+            "wv": ParamDef((d, KV, hd), ("fsdp", "kv_heads", "head_dim")),
+            "wo": ParamDef((H, hd, d), ("heads", "head_dim", "fsdp")),
+            "gate": ParamDef((1,), (None,), init="zeros")}  # llama-vision's tanh gate
 
 
 def cross_attn_block(p, cfg, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
@@ -820,14 +924,15 @@ def cross_attn_block(p, cfg, x: torch.Tensor, memory: torch.Tensor) -> torch.Ten
 
 
 def embed_defs(cfg) -> dict:
-    return {"tok": ParamDef((cfg.vocab, cfg.d_model), scale=0.02)}
+    return {"tok": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                            scale=0.02)}
 
 
 def embed(p, cfg, tokens: torch.Tensor) -> torch.Tensor:
     x = F.embedding(tokens, p["tok"]).to(cfg.torch_dtype)
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def logits_chunked(x: torch.Tensor, emb: torch.Tensor, cfg,
@@ -837,7 +942,7 @@ def logits_chunked(x: torch.Tensor, emb: torch.Tensor, cfg,
     logits = x @ emb.to(x.dtype).t()
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _xent_chunk(xs: torch.Tensor, emb: torch.Tensor, ls: torch.Tensor,
@@ -846,11 +951,14 @@ def _xent_chunk(xs: torch.Tensor, emb: torch.Tensor, ls: torch.Tensor,
     lg = xs @ emb.to(xs.dtype).t()
     if softcap:
         lg = torch.tanh(lg / softcap) * softcap
-    lg = lg.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    pick = lg.gather(-1, ls.clamp(min=0).long()[..., None])[..., 0]
+    lg = shard(lg, "batch", "seq", "vocab").float()
+    # kept (B, cs, 1): on a vocab-sharded DTensor the gathered pick stays a
+    # masked partial sum until it meets lse, and DTensor resolves it only in the
+    # gather's own shape
+    lse = torch.logsumexp(lg, dim=-1, keepdim=True)
+    pick = lg.gather(-1, ls.clamp(min=0).long()[..., None])
     mask = (ls >= 0).float()
-    return ((lse - pick) * mask).sum(), mask.sum()
+    return ((lse - pick)[..., 0] * mask).sum(), mask.sum()
 
 
 def xent_loss(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, cfg,

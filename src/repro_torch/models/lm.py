@@ -81,7 +81,7 @@ class LM(nn.Module):
         dtype = dtype or cfg.torch_dtype
         self.embed = L.materialize(L.embed_defs(cfg), dtype, device)
         self.final_norm = L.materialize(
-            L.ParamDef((cfg.d_model,), init="ones"), dtype, device)
+            L.ParamDef((cfg.d_model,), ("embed",), init="ones"), dtype, device)
         self.blocks = nn.ModuleList(
             Block(self.block_defs(cfg.block_kind(i)), dtype, device)
             for i in range(cfg.n_layers))
@@ -92,7 +92,7 @@ class LM(nn.Module):
                 Block(self.attn_ffn_defs(), dtype, device)
                 for _ in range(cfg.encoder_layers))
             self.enc_norm = L.materialize(
-                L.ParamDef((cfg.d_model,), init="ones"), dtype, device)
+                L.ParamDef((cfg.d_model,), ("embed",), init="ones"), dtype, device)
 
     # ------------------------------------------------------------------
     # Parameters
@@ -114,7 +114,8 @@ class LM(nn.Module):
         if kind == "slstm":
             return {"slstm": L.slstm_defs(cfg)}
         if kind == "shared_attn":
-            return {"in_proj": L.ParamDef((cfg.d_model, cfg.d_model), scale=0.02)}
+            return {"in_proj": L.ParamDef((cfg.d_model, cfg.d_model),
+                                          ("fsdp", "embed"), scale=0.02)}
         raise ValueError(f"unknown block kind {kind!r}")
 
     def attn_ffn_defs(self) -> dict:
@@ -128,7 +129,7 @@ class LM(nn.Module):
         cfg = self.cfg
         defs: dict = {
             "embed": L.embed_defs(cfg),
-            "final_norm": L.ParamDef((cfg.d_model,), init="ones"),
+            "final_norm": L.ParamDef((cfg.d_model,), ("embed",), init="ones"),
         }
         for p, kind in enumerate(cfg.pattern):
             defs[f"pos{p}"] = L.stack_defs(self.block_defs(kind),
@@ -138,7 +139,7 @@ class LM(nn.Module):
         if cfg.encoder_layers:
             defs["encoder"] = L.stack_defs(self.attn_ffn_defs(),
                                            cfg.encoder_layers)
-            defs["enc_norm"] = L.ParamDef((cfg.d_model,), init="ones")
+            defs["enc_norm"] = L.ParamDef((cfg.d_model,), ("embed",), init="ones")
         return defs
 
     def init(self, generator: torch.Generator) -> "LM":
@@ -165,6 +166,18 @@ class LM(nn.Module):
     def n_params(self) -> int:
         return sum(math.prod(d.shape)
                    for _, d in L.flatten_defs(self.param_defs()))
+
+    def abstract_params(self) -> dict:
+        """:meth:`param_defs` as meta tensors in the parameters' dtype: shapes
+        without storage (for sharding plans and dry runs)."""
+        dtype = self.embed["tok"].dtype
+        return L._map_defs(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
+                           self.param_defs())
+
+    def param_axes(self) -> dict:
+        """The logical-axis tree of :meth:`param_defs` (``pos{p}`` leaves lead
+        with ``"layers"``)."""
+        return L._map_defs(lambda d: d.axes, self.param_defs())
 
     # ------------------------------------------------------------------
     # Encoder / memory (whisper's audio frames, llama-vision's patches)
@@ -226,13 +239,14 @@ class LM(nn.Module):
             # implicit positions and a window: the fused attention kernel on the card
             o = L.mha(q, k, v, causal=True, window=cfg.attn_window,
                       q_chunk=cfg.attn_q_chunk)
-            h = L.ffn_block(self.shared.ffn, cfg, h + L._proj_out(o, attn["wo"]))
+            o = L.shard(L._proj_out(o, attn["wo"]), "batch", "seq", "embed")
+            h = L.ffn_block(self.shared.ffn, cfg, h + o)
             return x + h, {"k": k, "v": v}
         h = L.rms_norm(x, blk.attn["ln"], cfg.norm_eps)
         q, k, v = L._qkv(blk.attn, cfg, h, positions)
         # implicit positions: the fused attention kernel on the card
         o = L.mha(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk)
-        x = x + L._proj_out(o, blk.attn["wo"])
+        x = x + L.shard(L._proj_out(o, blk.attn["wo"]), "batch", "seq", "embed")
         if hasattr(blk, "cross"):
             x = L.cross_attn_block(blk.cross, cfg, x, memory)
         return self._ffn(blk, cfg, x), {"k": k, "v": v}
@@ -352,6 +366,28 @@ class LM(nn.Module):
         return tuple(self._cache_entry(self.cfg.block_kind(i), batch,
                                        max_len, device)
                      for i in range(self.cfg.n_layers))
+
+    def cache_axes(self) -> tuple:
+        """Logical-axis tree matching :meth:`init_cache` (for sharding)."""
+        cfg = self.cfg
+        kv = ("batch", "kv_seq", "kv_heads", "head_dim")
+
+        def entry(kind):
+            if kind in ("attn", "cross_attn", "shared_attn"):
+                return {"k": kv, "v": kv}
+            if kind == "mamba":
+                return {"ssm": ("batch", "heads", "head_dim", "state"),
+                        "conv": ("batch", "conv", "mlp")}
+            if kind == "mlstm":
+                return {"state": (("batch", "heads", "head_dim", "head_dim"),
+                                  ("batch", "heads", "head_dim"),
+                                  ("batch", "heads"))}
+            if kind == "slstm":
+                h3 = ("batch", "heads", "head_dim")
+                return {"state": (h3, h3, h3, ("batch", "heads"))}
+            raise ValueError(f"unknown block kind {kind!r}")
+
+        return tuple(entry(cfg.block_kind(i)) for i in range(cfg.n_layers))
 
     def unstack_cache(self, stacked):
         """Convert a prefill cache (stacked per pattern position) into the

@@ -3,8 +3,16 @@
 Counterpart of the reference's ``optim/adamw.py``: functional over a parameter
 dict (name -> tensor), not ``torch.optim``.  First/second moments are kept in
 fp32; parameters may be bf16.  Clip scale ``min(1, clip / max(gnorm, 1e-12))``,
-decoupled weight decay added inside ``delta``.  The reference's ZeRO-1 sharding
-of the moments waits for the parallel layer.
+decoupled weight decay added inside ``delta``.
+
+On a mesh the parameters, gradients and moments are DTensors, and the moments
+may be sharded where the parameters are not (ZeRO-1: ``opt_rules`` shard the
+"fsdp" dims over "data").  The update then runs in the moments' placements: each
+gradient is redistributed onto its moments (a pending sum becomes a
+reduce-scatter), and the step is redistributed onto the parameter's placements
+(an all-gather) before it is applied, so that the new parameters keep the
+parameters' placements and the moments theirs, as the reference's
+``out_shardings`` force.
 
 Where the reference returns new arrays (and the launcher donates the old ones),
 :func:`adamw_update` updates the parameters and moments IN PLACE and returns the
@@ -19,6 +27,8 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 
 @dataclass(frozen=True)
@@ -52,17 +62,58 @@ class OptState(NamedTuple):
     step: torch.Tensor
 
 
-def init_opt_state(params: dict) -> OptState:
-    z = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-         for name, p in params.items()}
+def init_opt_state(params: dict, shardings: dict | None = None) -> OptState:
+    """Zeroed fp32 moments, one pair a parameter, and step 0.  ``shardings``
+    (parameter name -> ``NamedSharding``) makes the moments DTensors under
+    those placements (the parameters may be placed otherwise: ZeRO-1)."""
+    def zeros(name, p):
+        if shardings is None:
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        sh = shardings[name]
+        return dtensor_zeros(p.shape, dtype=torch.float32, device_mesh=sh.mesh,
+                             placements=list(sh.placements))
     dev = next(iter(params.values())).device if params else None
-    return OptState(m=z, v={name: torch.zeros_like(t) for name, t in z.items()},
+    return OptState(m={n: zeros(n, p) for n, p in params.items()},
+                    v={n: zeros(n, p) for n, p in params.items()},
                     step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every entry, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+    """sqrt of the sum of squares of every entry, in fp32 (a plain tensor, also
+    for DTensors).  On a mesh each rank adds up its local shards' sums of
+    squares, each divided by the number of ranks that hold the same shard (the
+    product of its replicated mesh dims), so that the sum over every rank of the
+    mesh is the whole: one reduction over the mesh (an all-reduce per mesh dim)
+    for all the tensors, not one a tensor."""
+    parts, pending = [], {}
+    for x in tensors:
+        if not isinstance(x, DTensor):
+            parts.append(torch.sum(torch.square(x.float())))
+            continue
+        mesh = x.device_mesh
+        if any(p.is_partial() for p in x.placements):
+            x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                      for p in x.placements])
+        copies = math.prod(mesh.size(d) for d, p in enumerate(x.placements)
+                           if not p.is_shard())
+        local = torch.sum(torch.square(x.to_local().float()))
+        if copies > 1:
+            local = local / copies
+        pending[mesh] = pending[mesh] + local if mesh in pending else local
+    for mesh, local in pending.items():
+        whole = DTensor.from_local(local, mesh, [Partial()] * mesh.ndim)
+        for d in range(mesh.ndim):          # a mesh dim at a time, as DTensor would
+            whole = whole.redistribute(mesh, [Replicate()] * (d + 1)
+                                       + [Partial()] * (mesh.ndim - d - 1))
+        parts.append(whole.to_local())
+    return torch.sqrt(sum(parts))
+
+
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``ref``'s placements (a plain tensor as it is)."""
+    if isinstance(t, DTensor) and tuple(t.placements) != tuple(ref.placements):
+        return t.redistribute(ref.device_mesh, ref.placements)
+    return t
 
 
 @torch.no_grad()
@@ -70,6 +121,7 @@ def adamw_update(params: dict, grads: dict, state: OptState,
                  cfg: AdamWConfig) -> tuple[dict, OptState, dict]:
     """One AdamW step.  Returns (params, new_state, metrics); ``params`` and the
     moments are updated in place (see the module docstring)."""
+    grads = {name: _like(g, state.m[name]) for name, g in grads.items()}
     gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state.step + 1
@@ -84,7 +136,8 @@ def adamw_update(params: dict, grads: dict, state: OptState,
         del g
         delta = m / b1c
         delta.div_((v / b2c).sqrt_().add_(cfg.eps))
-        delta.add_(p.float(), alpha=cfg.weight_decay).mul_(lr)
+        delta.add_(_like(p.float(), m), alpha=cfg.weight_decay).mul_(lr)
+        delta = _like(delta, p)
         if p.dtype == torch.float32:
             p.sub_(delta)
         else:

@@ -2,8 +2,11 @@
 
 ``make_train_step`` builds one optimizer step: microbatched gradient
 accumulation (a Python loop in place of ``lax.scan``), global-norm clipping,
-AdamW, metrics.  Sharding waits for the parallel layer: the steps run on one
-device.
+AdamW, metrics.  Given a mesh and its rules, the train step runs on DTensors
+under ``use_rules`` (the model's ``shard`` sites redistribute its activations)
+and ``implicit_replication`` (a plain tensor made inside the step, such as the
+positions or a scalar, counts as replicated); without one, on plain tensors of
+one device.
 
 The reference's steps take the parameter tree as their first argument; here the
 parameters live in the ``LM`` module.  The train state's ``params`` are the
@@ -13,12 +16,15 @@ step; the serving steps take only what changes from call to call.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.parallel.axes import AxisRules, use_rules
 
 MOD_KEYS = ("audio_embed", "vision_embed")
 
@@ -49,9 +55,14 @@ def _bind_params(model: LM, params: dict) -> dict:
     return own
 
 
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1,
-                    remat: str = "selective") -> Callable:
+                    remat: str = "selective", mesh: Any = None,
+                    rules: AxisRules | None = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``state = {"params": {name: tensor}, "opt": OptState}``;
@@ -59,7 +70,9 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
     with cross-attention, ``audio_embed`` or ``vision_embed``.  With
     ``microbatches`` M > 1 the batch is cut into M row blocks whose gradients are
     summed in fp32 and divided by M, as the loss is.  Metrics (0-d tensors on the
-    device): ``loss``, ``grad_norm``, ``lr``, ``tokens``.
+    device, plain also on a mesh): ``loss``, ``grad_norm``, ``lr``, ``tokens``.
+    With ``mesh`` the state and batch are DTensors (``runtime.trainer`` places
+    them) and the step runs under ``rules``.
     """
 
     def loss_fn(mb: dict) -> torch.Tensor:
@@ -67,6 +80,12 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
         return model.loss(rest["tokens"], rest["labels"], remat=remat, **mods)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        if mesh is None:
+            return _train_step(state, batch)
+        with use_rules(mesh, rules), implicit_replication():
+            return _train_step(state, batch)
+
+    def _train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = _bind_params(model, state["params"])
         leaves = list(params.values())
         M = microbatches
@@ -76,14 +95,16 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
             loss = loss.detach()
         else:
             n = batch["tokens"].shape[0] // M
-            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in leaves]
+            loss, grads = 0.0, None
             for i in range(M):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 l_i = loss_fn(mb)
-                for acc, g in zip(grads, torch.autograd.grad(l_i, leaves)):
-                    acc.add_(g)
+                g_i = [g.float() for g in torch.autograd.grad(l_i, leaves)]
+                if grads is None:
+                    grads = g_i
+                else:
+                    for acc, g in zip(grads, g_i):
+                        acc.add_(g)
                 loss = loss + l_i.detach()
             loss = loss / M
             for acc in grads:
@@ -91,7 +112,7 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
         new_params, new_opt, om = adamw_update(params, dict(zip(params, grads)),
                                                state["opt"], opt_cfg)
         tokens = batch["tokens"]
-        metrics = {"loss": loss, **om,
+        metrics = {"loss": _plain(loss), **om,
                    "tokens": torch.tensor(float(tokens.shape[0] * tokens.shape[1]),
                                           dtype=torch.float32)}
         return {"params": new_params, "opt": new_opt}, metrics

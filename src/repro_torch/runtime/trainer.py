@@ -1,5 +1,4 @@
-"""Fault-tolerant training runtime on one device (the reference's
-``runtime/trainer.py``).
+"""Fault-tolerant training runtime (the reference's ``runtime/trainer.py``).
 
 Drives the train step over the synthetic pipeline with:
 
@@ -9,15 +8,20 @@ Drives the train step over the synthetic pipeline with:
     :class:`NetworkEvent`\\ s (S1 bandwidth / S2 slowdown / S3 failure) are
     applied to the analytic :class:`ClusterTopology`, the
     :class:`DynamicOrchestrator` re-plans through the :class:`ReplanEngine`, and
-    the trainer rebuilds its step and restores the state it checkpointed at the
-    event, then folds the measured restore into the engine's reconfiguration
-    cost model (``calibrate_io``),
+    the trainer rebuilds its step and shardings and restores the state it
+    checkpointed at the event onto them (an elastic reshard), then folds the
+    measured restore into the engine's reconfiguration cost model
+    (``calibrate_io``),
   * the same ``history`` records and ``adaptations`` / ``engine`` views.
 
-One device runs the same step whatever the plan says: the plan steers the event
-loop, as the reference's host mesh of ``(n, 1)`` devices does.  Sharding the
-state over a mesh (``mesh=``, ``zero3=True``) needs the parallel layer, which is
-not ported yet (ROADMAP M11), and raises ``NotImplementedError``.
+With ``mesh`` (a ``DeviceMesh`` with axes ``("data", "model")`` or ``("pod",
+"data", "model")``, ``launch.mesh``) the train state lives as DTensors under the
+reference's axis rules: ``parallel.sharding.profile_for`` resolves them (ZeRO-3
+shards the parameters' "fsdp" dims over "data" when ``zero3``; otherwise ZeRO-1
+shards only the moments), the parameters, moments and batches are placed on
+them, and the step runs under them.  Every rank runs the same program on the
+same synthetic batches; rank 0 writes the checkpoints.  Without a mesh the
+step runs on plain tensors of one device, which ``zero3`` does not change.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from pathlib import Path
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.store import AsyncSaver, _items, restore
 from repro_torch.core import (ClusterTopology, DynamicOrchestrator,
@@ -40,7 +45,9 @@ from repro_torch.models.convert import (export_jax_train_state,
                                         jax_train_state_like,
                                         load_jax_train_state)
 from repro_torch.models.lm import LM
-from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.axes import distribute, full
 from repro_torch.parallel.trainstep import init_train_state, make_train_step
 
 Pytree = Any
@@ -63,13 +70,6 @@ class TrainerConfig:
     device: str = "cuda"
 
 
-def _needs_parallel_layer(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Trainer({what}) shards the train state over a mesh, which needs the "
-        "parallel layer, not ported yet (ROADMAP M11); the port trains on one "
-        "device without it")
-
-
 class Trainer:
     def __init__(self, cfg: TrainerConfig, *,
                  mesh=None,
@@ -77,10 +77,6 @@ class Trainer:
                  topo: ClusterTopology | None = None,
                  events: Sequence[tuple[int, NetworkEvent]] = (),
                  scenario: "str | object | None" = None):
-        if mesh is not None:
-            raise _needs_parallel_layer("mesh=...")
-        if cfg.zero3:
-            raise _needs_parallel_layer("zero3=True")
         self.cfg = cfg
         self.device = torch.device(cfg.device)
         self.model = LM(cfg.arch, device=self.device)
@@ -142,7 +138,7 @@ class Trainer:
             self._orch = DynamicOrchestrator(
                 model=desc, global_batch=cfg.global_batch, seq=cfg.seq_len,
                 engine=self._engine)
-        self._build()
+        self._build(mesh)
 
     # -- public adaptation telemetry ------------------------------------------
 
@@ -157,12 +153,21 @@ class Trainer:
         """The incremental ReplanEngine (None when no topology attached)."""
         return self._engine
 
-    # -- (re)build against the current plan ------------------------------------
+    # -- (re)build against the current mesh/plan -----------------------------
 
-    def _build(self) -> None:
+    def _build(self, mesh) -> None:
+        self.mesh = mesh
+        self.prof = self.state_sh = None
+        if mesh is not None:
+            self.prof = shd.profile_for(self.cfg.arch, mesh, zero3=self.cfg.zero3)
+            self.state_sh = {
+                "params": shd.param_shardings(self.model, mesh, self.prof.rules),
+                "opt": shd.opt_state_shardings(self.model, mesh, self.prof.opt_rules),
+            }
         self._step = make_train_step(self.model, self.cfg.opt,
                                      microbatches=self.cfg.microbatches,
-                                     remat=self.cfg.remat)
+                                     remat=self.cfg.remat, mesh=mesh,
+                                     rules=self.prof.rules if self.prof else None)
         a = self.cfg.arch
         self.data = SyntheticLM(DataConfig(
             vocab=a.vocab, seq_len=self.cfg.seq_len,
@@ -173,14 +178,33 @@ class Trainer:
 
     def init_state(self) -> Pytree:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-        return init_train_state(self.model, gen)
+        if self.mesh is None:
+            return init_train_state(self.model, gen)
+        # every rank draws the same full parameters, then keeps its shards
+        self.model.init(gen)
+        shd.distribute_params(self.model,
+                              shd.module_shardings(self.model, self.state_sh["params"]))
+        params = dict(self.model.named_parameters())
+        opt_sh = shd.module_shardings(self.model, self.state_sh["opt"].m)
+        return {"params": params, "opt": init_opt_state(params, opt_sh)}
 
     def _place(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+        out = {k: torch.from_numpy(v).to(self.device, non_blocking=True)
+               for k, v in batch.items()}
+        if self.mesh is None:
+            return out
+        sh = shd.batch_shardings(self.mesh, out, self.prof.rules)
+        return distribute(out, sh)
 
     def _plan_json(self) -> str:
         return self.plan.to_json() if self.plan else ""
+
+    def _save(self, path: Path, state: Pytree, step: int) -> None:
+        """Queue a checkpoint of ``state``: on a mesh every rank gathers the
+        shards (a collective) and rank 0 writes."""
+        tree = export_jax_train_state(self.model, full(state))
+        if self.mesh is None or dist.get_rank() == 0:
+            self.saver.submit(path, tree, step=step, plan_json=self._plan_json())
 
     # -- event handling (paper §2.2: S1/S2/S3) --------------------------------
 
@@ -189,9 +213,10 @@ class Trainer:
         assert self.topo is not None and self._orch is not None
         self.saver.wait()
         ck = Path(self.cfg.ckpt_dir) / f"step_{step}"
-        self.saver.submit(ck, export_jax_train_state(self.model, state),
-                          step=step, plan_json=self._plan_json())
+        self._save(ck, state, step)
         self.saver.wait()
+        if self.mesh is not None:
+            dist.barrier()           # rank 0's checkpoint is on disk for all
         self.topo.apply_event(ev)
         if self._engine is not None and len(self.history) > self._hist_mark:
             # remaining-horizon budget for the engine's switch-cost
@@ -206,19 +231,19 @@ class Trainer:
         old_plan = self.plan or ParallelPlan()
         self.plan = self._orch.adapt(old_plan, self.topo, ev)
         self.replans += 1
-        # rebuild the step against the new plan (one device: the same step)
-        # and restore the state checkpointed above
-        self._build()
+        # rebuild the step and shardings against the new plan and reshard the
+        # state checkpointed above onto them
+        self._build(self.mesh)
         like = jax_train_state_like(self.model)
         t0 = time.perf_counter()
-        tree, _ = restore(ck, like)
+        tree, _ = restore(ck, like, shardings=self.state_sh)
         restored = load_jax_train_state(self.model, tree)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         restore_s = time.perf_counter() - t0
         # the restored tree's bytes (parameters in the model's dtype, fp32
         # moments, the int32 step), as the reference counts its leaves
-        nbytes = sum(leaf.nbytes for _, leaf in _items(tree))
+        nbytes = sum(leaf.numel() * leaf.element_size() for _, leaf in _items(tree))
         del tree                      # the host copy, before the next step
         self.restores.append({"step": step, "seconds": restore_s, "bytes": nbytes})
         if self._engine is not None:
@@ -254,8 +279,6 @@ class Trainer:
                       f"gnorm {m['grad_norm']:.2f} lr {m['lr']:.2e} "
                       f"tok/s {tok_s:,.0f}", flush=True)
             if cfg.ckpt_every and step and step % cfg.ckpt_every == 0:
-                self.saver.submit(Path(cfg.ckpt_dir) / f"step_{step}",
-                                  export_jax_train_state(self.model, state),
-                                  step=step, plan_json=self._plan_json())
+                self._save(Path(cfg.ckpt_dir) / f"step_{step}", state, step)
         self.saver.wait()
         return state, self.history

@@ -3,6 +3,7 @@ port's example import nothing of JAX or of the JAX package, and the package
 calls no library kernel in place of its own."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -16,9 +17,11 @@ PACKAGE = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
            ROOT / "examples" / "train_e2e_torch.py",
            ROOT / "examples" / "dynamic_network_torch.py",
+           ROOT / "examples" / "quickstart_torch.py",
            ROOT / "tools" / "profile_serve_torch.py", ROOT / "tools" / "profile_train_torch.py",
            ROOT / "tools" / "flash_bench.py", ROOT / "tools" / "flash_bwd_phases.py",
-           ROOT / "tools" / "flash_fwd_phases.py", ROOT / "tools" / "flash_hd80_variants.py"]
+           ROOT / "tools" / "flash_fwd_phases.py", ROOT / "tools" / "flash_hd80_variants.py",
+           ROOT / "tools" / "count_collectives.py", ROOT / "tools" / "train_mesh_norm.py"]
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 FORBIDDEN_CALLS = ("scaled_dot_product_attention", "rms_norm", "compile")
 
@@ -78,12 +81,30 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.parallel.trainstep, repro_torch.optim.adamw, "
             "repro_torch.data.pipeline, repro_torch.checkpoint.store, "
             "repro_torch.runtime.trainer, repro_torch.launch.train, "
-            "repro_torch.core, repro_torch.obs, repro_torch.scenarios; "
+            "repro_torch.core, repro_torch.obs, repro_torch.scenarios, "
+            "repro_torch.scenarios.harness, repro_torch.service, "
+            "repro_torch.parallel.axes, repro_torch.parallel.sharding, "
+            "repro_torch.launch.mesh; "
             "print(len(repro_torch.configs.all_configs()))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "10"
+
+
+def test_quickstart_runs_on_the_cpu():
+    """examples/quickstart_torch.py, the twin of examples/quickstart.py: the plan
+    on 4 RTX4090D + 4 V100, then the Trainer on the reduced config.  One thread:
+    ~6 s alone; torch's default of a thread per core stalls it on a machine whose
+    cores the other test workers hold."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
+                          "--device", "cpu"], capture_output=True, text=True, timeout=300,
+                         env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "best plan" in out.stdout and "predicted step" in out.stdout
+    first, last = map(float, out.stdout.strip().splitlines()[-1].split()[1::2])
+    assert last < first
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -1,10 +1,11 @@
-"""The port's planner stack (``repro_torch.core``, ``obs``, ``scenarios``) against
-the JAX package's: each module is the reference's file with its module paths
-renamed and its history tags dropped, nothing else; plans and predicted step times are equal (``==``) on the
+"""The port's planner stack (``repro_torch.core``, ``obs``, ``scenarios``,
+``service``) against the JAX package's: each module is the reference's file with its
+module paths renamed and its history tags dropped, nothing else; plans and predicted
+step times are equal (``==``) on the
 search tests' six clusters, the re-planning engine takes the same path to the same
 plan at every S1/S2/S3 event, ``to_model_desc`` gives the same description for
 every architecture, the scenario catalog the same traces and JSONL bytes, and the
-three packages load neither torch nor JAX."""
+four packages load neither torch nor JAX."""
 
 import ast
 import dataclasses
@@ -35,7 +36,10 @@ CORE = ("__init__", "cluster", "routing", "fabric", "opgraph", "costmodel", "pla
         "dynamic")
 COPIED = ([f"obs/{m}.py" for m in ("__init__", "tracer", "metrics", "export")]
           + [f"core/{m}.py" for m in CORE]
-          + [f"scenarios/{m}.py" for m in ("trace", "generators", "catalog")])
+          + [f"scenarios/{m}.py" for m in ("trace", "generators", "catalog",
+                                           "tenancy", "harness", "__init__")]
+          + [f"service/{m}.py" for m in ("jobs", "admission", "cache", "service",
+                                         "__init__")])
 
 
 @pytest.fixture(autouse=True)
@@ -54,7 +58,10 @@ HISTORY_TAGS = ((r" \(ISSUE \d+(?: tentpole)?\)", ""),
                 (r" \(ISSUE \d+ satellite —\n# ", "\n# ("),
                 (r"ISSUE \d+ acceptance pins", "Its acceptance tests pin"),
                 (r" \(PR \d+(?:-\d+)?\)", ""),
-                (r"PR \d+'s ", ""))
+                (r"PR \d+'s ", ""),
+                (r" PR-\d+\n", "\n"),
+                (r"ISSUE \d+ tentpole; ", ""),
+                (r"PR \d+ ships ", "The engine ships "))
 
 
 def _ported(text: str) -> str:
@@ -77,21 +84,23 @@ def test_module_is_the_reference_renamed(rel):
 
 
 def test_every_planner_module_is_copied():
-    for sub in ("core", "obs"):
+    for sub in ("core", "obs", "scenarios", "service"):
         assert sorted(p.name for p in (REF / sub).glob("*.py")) == \
             sorted(p.name for p in (PORT / sub).glob("*.py"))
-    assert sorted(p.name for p in (PORT / "scenarios").glob("*.py")) == \
-        ["__init__.py", "catalog.py", "generators.py", "trace.py"]
+    assert sorted(str(p.relative_to(PORT)) for sub in ("core", "obs", "scenarios",
+                                                        "service")
+                  for p in (PORT / sub).glob("*.py")) == sorted(COPIED)
 
 
 def test_scenarios_export_the_three_modules_names():
-    """The port's scenarios ``__init__`` (the one file allowed to differ) exports
-    exactly what the reference's imports from trace, generators and catalog."""
+    """The port's scenarios ``__init__`` exports what the reference's does: the
+    names of trace, generators and catalog, and those of harness and tenancy."""
     tree = ast.parse((REF / "scenarios" / "__init__.py").read_text())
-    want = {"trace", "generators", "catalog"}
+    mods = {"trace", "generators", "catalog", "harness", "tenancy"}
+    want = set(mods)
     want |= {a.name for node in tree.body if isinstance(node, ast.ImportFrom)
-             and node.module in ("trace", "generators", "catalog") for a in node.names}
-    assert set(pscen.__all__) == want
+             and node.module in mods for a in node.names}
+    assert set(pscen.__all__) == want == set(jscen.__all__)
     assert all(getattr(pscen, n) is not None for n in want)
     assert set(pcore.__all__) == set(jcore.__all__)
 
@@ -237,7 +246,9 @@ def test_catalog_traces_match_the_reference(name, tmp_path):
 
 def test_planner_packages_load_neither_torch_nor_jax():
     code = (f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r}); "
-            "import repro_torch.core, repro_torch.obs, repro_torch.scenarios; "
+            "import repro_torch.core, repro_torch.obs, repro_torch.scenarios, "
+            "repro_torch.scenarios.harness, repro_torch.scenarios.tenancy, "
+            "repro_torch.service; "
             "print(sorted(m for m in ('torch', 'jax', 'jaxlib', 'repro') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

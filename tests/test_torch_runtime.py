@@ -220,11 +220,16 @@ def test_trajectory_matches_the_reference_trainer(tmp_path):
 
 @pytest.mark.parametrize("arg", ["mesh", "zero3"])
 def test_planner_arguments_raise(tmp_path, arg):
-    """Sharding over a mesh waits for the parallel layer; topo, events, scenario
-    and plan are held against the reference in test_torch_dynamic.py."""
+    """A mesh needs a process group of its size: without one the mesh builder
+    raises (nothing falls back to one device).  Without a mesh ``zero3`` has
+    nothing to shard and the one-device run is the same.  The sharded runs are
+    held in test_torch_multidev.py; topo, events, scenario and plan in
+    test_torch_dynamic.py."""
     if arg == "zero3":
-        with pytest.raises(NotImplementedError, match="parallel layer"):
-            Trainer(_tcfg(tmp_path, zero3=True))
+        _, plain = Trainer(_tcfg(tmp_path / "a", steps=3, log_every=1)).run()
+        _, zero3 = Trainer(_tcfg(tmp_path / "b", steps=3, log_every=1, zero3=True)).run()
+        assert [h["loss"] for h in zero3] == [h["loss"] for h in plain]
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Trainer(_tcfg(tmp_path), mesh=object())
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(RuntimeError, match="needs 1 ranks, found 0"):
+        Trainer(_tcfg(tmp_path), mesh=make_host_mesh(data=1, device_type="cpu"))
