@@ -4,7 +4,7 @@
     python3 chip_smoke.py                 # everything, as below
     python3 chip_smoke.py --layers 4      # cut qwen2-7b's served depth (never its width)
     python3 chip_smoke.py --skip-serve --skip-train   # build and check the kernels, run small
-    python3 chip_smoke.py --skip-serve    # the kernels, small and the four train phases
+    python3 chip_smoke.py --skip-serve    # the kernels, small, the train phases and the rest
     python3 chip_smoke.py --out DIR       # also write report.json(l) and nvcc's log there
     python3 chip_smoke.py --bf16-seeds 6  # only the bf16 whole-model check, seeds 0..5
 
@@ -107,6 +107,9 @@ average taken at the phase's start and end (read only, never a check):
   train_zamba  (the model before freed) the same for zamba2-2.7b at full width, 6 of
            54 layers (4 Mamba2, 2 occurrences of the shared attention block), 4
            steps: flash at head_dim 80 forward and backward, both on wgmma;
+  train_zamba_mesh  train_zamba again through the Trainer's mesh path, as train_mesh
+           is train's: the Mamba2 scans on the local shards through local_map, every
+           step's loss within 5e-3 of train_zamba's;
   launch_train  the training launcher as a user runs it, in-process:
            `python -m repro_torch.launch.train --arch zamba2_2p7b --plan auto
            --steps 8 --global-batch 8 --seq 256`, zamba2-2.7b at full width and depth
@@ -135,7 +138,36 @@ average taken at the phase's start and end (read only, never a check):
   scenarios  host only: the port's ScenarioHarness over two seeds of one catalog
            scenario, sequentially and in 2 worker processes (equal timelines), and
            a PlannerService replay of a multi-tenant stream serially and with 4
-           threads (equal plan digests); the walls printed.
+           threads (equal plan digests); the walls printed;
+  collectives  parallel.collectives.sync_grads on a one-rank NCCL group's "data" axis
+           over a bf16 tree of train's parameter shapes (2.41 G entries, seeded on
+           the card): "allreduce" and "rs_ag" give the tree back bit for bit, "int8"
+           is within 1.25 of each leaf's scale in bf16 (within one in float32, on
+           one layer's leaves) and its new_err is exactly g - deq; ms per
+           schedule (a one-rank collective moves nothing: the int8 passes are the
+           only device work);
+  pipeline  parallel.pipeline.pipeline_forward on a one-rank "pipe" mesh: qwen2-7b's
+           decoder layers at full width (4 stacked, bf16) through the functional
+           attn_block / ffn_block, 4 microbatches of 1 x 2048 tokens, forward and
+           backward, held against the same layers applied in sequence on the card
+           (outputs and every gradient within TOL_BF16's dense tolerances) with the
+           exact launches of both kernels both ways; ms beside the sequential
+           stack's.  Uneven stages, the padding mask and send / recv need more than
+           one rank and are held on gloo ranks by tests/test_torch_pipeline.py;
+  roofline  launch.dryrun (the step on fake tensors, each rank's own flops, the
+           collectives by kind, a tracked peak) for train's cell and launch_train's on
+           a fake one-rank group's (1, 1) mesh, at one microbatch as measured: flops, the compute / memory / collective terms at
+           the H100's datasheet peaks, the bottleneck and the tracked peak beside the
+           measured ms a step and peak of those phases (measured / roofline and
+           tracked / measured: readings, never gates); and, in a subprocess, the
+           production cell qwen2-7b x train_4k on the (16, 16) mesh of 256 fake
+           ranks: its fits, microbatches, terms and wall seconds;
+  calibrate  tools/calibrate_fabric_torch.py's sweep on the card (pinned host<->card
+           copies priced against the planner's H100 PCIe edge, one-rank NCCL
+           all-reduces), fitted: alpha, beta, the copies' peak GB/s, the all-reduce's
+           median latency (one rank moves no bytes: latency only) and the composite
+           step's simulated against measured error (which prices latency, not
+           bandwidth).
 
 Then the card's name and power limit, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}.  Any failed check ends the run with a non-zero exit
@@ -300,7 +332,8 @@ TOL_FLASH_FP32, TOL_FLASH_SOFTCAP, TOL_16BIT, TOL_RMSNORM_FP32 = 2e-5, 1e-4, 2e-
 #  lse: 1e-4 in fp32 and 1e-3 in 16 bits (the wgmma kernel's exponentials are the
 #        approximate ex2 instruction).
 TOL_BWD_FP32, TOL_RMSNORM_BWD_FP32, TOL_LSE_FP32, TOL_LSE_16BIT = 1e-4, 1e-5, 1e-4, 1e-3
-# train_mesh against train, per step's loss, absolute: the same bf16 step on the
+# train_mesh against train (train_zamba_mesh against train_zamba), per step's loss,
+# absolute: the same bf16 step on the
 # same card, but the wgmma backward's dq is summed by TMA reduce-adds in no fixed
 # order, so two runs part by rounding that the steps carry forward
 TOL_MESH_LOSS = 5e-3
@@ -317,6 +350,13 @@ TOL_MESH_LOSS = 5e-3
 # tolerances are about twice the worst.
 TOL_BF16 = {"zamba2_2p7b": (1e-3, 2.0, 1.1),    # (loss, largest entry, L2 norm)
             "gemma_7b": (1e-4, 0.035, 0.03)}
+# int8 gradient compression (collectives phase), the reference's formula in the
+# leaf's dtype: in float32 round(x / scale) is within half a step of x / scale and
+# q * scale exact to 2^-24, so g is within one scale (the reference test's bound).  In
+# bf16, x / scale is itself rounded to bf16 (a spacing of 0.5 between 64 and 128: a
+# quarter step more) and so is q * scale (half an ulp of up to 127 scales: about half a
+# step more): 0.5 + 0.25 + 0.5 = 1.25 scales.
+INT8_BF16_SCALES = 1.25
 
 FAILURES: list[str] = []
 
@@ -787,6 +827,9 @@ def run(args, torch) -> None:
     # default global batch and sequence, B_LAUNCH x S_LAUNCH)
     REDUCED_ARGV = ["--arch", "qwen2_7b", "--reduced", "--plan", "auto", "--steps",
                     str(LAUNCH_STEPS)]
+    # pipeline: qwen2-7b's decoder layers at full width, PIPE_LAYERS of them, through
+    # pipeline_forward on a one-rank "pipe" mesh, PIPE_M microbatches of 1 x PIPE_SEQ
+    PIPE_LAYERS, PIPE_M, PIPE_SEQ = 4, 4, 2048
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     bf16 = torch.bfloat16
 
@@ -1150,6 +1193,14 @@ def run(args, torch) -> None:
     flash_cases.append(reduced_entry)
     reduced_fwd = timed_flash(reduced_case, reduced_entry, torch.float32)
     reduced_bwd = {"path": "launch_reduced", **timed_backward(reduced_case, torch.float32)}
+    # the pipeline phase's shapes (qwen2-7b's layers, microbatches of 1 x PIPE_SEQ),
+    # bf16: the flash forward held, its backward held and timed, the RMSNorm forward
+    # held and timed and its backward held
+    pipe_case = (1, PIPE_SEQ, PIPE_SEQ, H, KV, hd, cfg.causal, 0)
+    flash_cases.append({"path": "pipeline", **flash_case(pipe_case, bf16, TOL_16BIT)})
+    pipe_bwd = {"path": "pipeline", **timed_backward(pipe_case)}
+    path_rms_timed["pipeline"] = [timed_rmsnorm((PIPE_SEQ, d), cfg.norm_eps,
+                                                f"rmsnorm ({PIPE_SEQ},{d}) bf16 (pipeline)")]
     zamba_widths = (zcfg.d_model, zcfg.ssm_expand * zcfg.d_model)
     path_rms_timed["launch_train"] = [
         timed_rmsnorm((B_LAUNCH * S_LAUNCH, w_), zcfg.norm_eps,
@@ -1157,24 +1208,26 @@ def run(args, torch) -> None:
         for w_ in zamba_widths]
     # the RMSNorm backward at zamba2's widths on its training paths, bf16:
     # launch_train's B_LAUNCH x S_LAUNCH rows and train_zamba's / train_dynamic's
-    # B_TRAIN x S_TRAIN
-    for rows_ in (B_LAUNCH * S_LAUNCH, B_TRAIN * S_TRAIN):
-        for w_ in zamba_widths:
-            x, dy = randn((rows_, w_), bf16), randn((rows_, w_), bf16)
-            w = randn((w_,), bf16, 0.1) + 1
-            dx, dw = rms_mod.launch_backward(x, w, dy, zcfg.norm_eps, 0,
-                                             _build.DTYPE_CODES[bf16], _build.DTYPE_CODES[bf16])
-            dx_ref, dw_ref = ops.rmsnorm_bwd_reference(x.float(), w.float(), dy.float(),
-                                                       zcfg.norm_eps)
-            name = f"rmsnorm backward ({rows_}, {w_}) bf16 (zamba2 training)"
-            rms_bwd_cases.append({
-                "shape": [rows_, w_], "dtype": str(bf16), "w_dtype": str(bf16),
-                "max_err_share": {"dx": compare_share(name + " dx", dx, dx_ref, TOL_16BIT),
-                                  "dw": compare_share(name + " dw", dw, dw_ref, TOL_16BIT)},
-                "max_abs_err": max(float((dx.float() - dx_ref).abs().max()),
-                                   float((dw.float() - dw_ref).abs().max())),
-                "tol": TOL_16BIT})
-            del x, dy, w, dx, dw, dx_ref, dw_ref
+    # B_TRAIN x S_TRAIN; and the pipeline phase's PIPE_SEQ rows of qwen2-7b's d_model
+    rms_bwd_path_cases = [(r_, w_, zcfg.norm_eps, "zamba2 training")
+                          for r_ in (B_LAUNCH * S_LAUNCH, B_TRAIN * S_TRAIN)
+                          for w_ in zamba_widths]
+    rms_bwd_path_cases.append((PIPE_SEQ, d, cfg.norm_eps, "pipeline"))
+    for rows_, w_, eps_, label in rms_bwd_path_cases:
+        x, dy = randn((rows_, w_), bf16), randn((rows_, w_), bf16)
+        w = randn((w_,), bf16, 0.1) + 1
+        dx, dw = rms_mod.launch_backward(x, w, dy, eps_, 0,
+                                         _build.DTYPE_CODES[bf16], _build.DTYPE_CODES[bf16])
+        dx_ref, dw_ref = ops.rmsnorm_bwd_reference(x.float(), w.float(), dy.float(), eps_)
+        name = f"rmsnorm backward ({rows_}, {w_}) bf16 ({label})"
+        rms_bwd_cases.append({
+            "shape": [rows_, w_], "dtype": str(bf16), "w_dtype": str(bf16),
+            "max_err_share": {"dx": compare_share(name + " dx", dx, dx_ref, TOL_16BIT),
+                              "dw": compare_share(name + " dw", dw, dw_ref, TOL_16BIT)},
+            "max_abs_err": max(float((dx.float() - dx_ref).abs().max()),
+                               float((dw.float() - dw_ref).abs().max())),
+            "tol": TOL_16BIT})
+        del x, dy, w, dx, dw, dx_ref, dw_ref
     torch.cuda.empty_cache()
 
     # the serving path's two shapes (prefill, decode step)
@@ -1280,7 +1333,7 @@ def run(args, torch) -> None:
             # zamba2-2.7b's training shape (train_zamba) and gemma-7b's, each with its
             # repeat check and kernel times
             "head_dim_80": bwd_timed["head_dim_80"], "head_dim_256": bwd_timed["head_dim_256"],
-            "path_shapes": {"launch_train": launch_bwd},
+            "path_shapes": {"launch_train": launch_bwd, "pipeline": pipe_bwd},
             "worst_err_all_cases": max(max(c["max_err_share"].values())
                                        for c in flash_bwd_cases)},
         # the mma.sync backward passes, at the 16-bit head_dims 32 and 16 they keep;
@@ -1779,24 +1832,31 @@ def run(args, torch) -> None:
             "flash_launches_by_variant": path_variants[phase],
             "flash_bwd_launches_by_variant": path_bwd_variants[phase]}
 
+    # A one-rank NCCL group on the card (127.0.0.1 rendezvous), destroyed after the phase
+    # that asked for it (train_mesh, collectives, pipeline).
+    @contextlib.contextmanager
+    def nccl_one_rank():
+        import torch.distributed as dist
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0, device_id=dev)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+            torch.cuda.empty_cache()
+
     # One model trained at full width, cut in depth: the Trainer over SyntheticLM
     # batches of B_TRAIN x S_TRAIN tokens, remat none, every step logged.  With
     # `ref` (the train phase's reading) the same run on a one-rank NCCL group and a
     # (1, 1) mesh with ZeRO-3: the Trainer's mesh path, held to ref's losses.
     def train_phase(phase: str, tcfg, steps: int, ref: dict | None = None) -> dict:
         if ref is not None:
-            import torch.distributed as dist
             from repro_torch.launch.mesh import make_host_mesh
-            with socket.socket() as sock:
-                sock.bind(("127.0.0.1", 0))
-                port = sock.getsockname()[1]
-            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
-                                    world_size=1, rank=0, device_id=dev)
-            try:
+            with nccl_one_rank():
                 return _train_phase(phase, tcfg, steps, ref, make_host_mesh())
-            finally:
-                dist.destroy_process_group()
-                torch.cuda.empty_cache()
         return _train_phase(phase, tcfg, steps, ref, None)
 
     def _train_phase(phase: str, tcfg, steps: int, ref, mesh) -> dict:
@@ -1826,7 +1886,8 @@ def run(args, torch) -> None:
         return out
 
     def mesh_reading(trainer, state, ref: dict, out: dict) -> dict:
-        """train_mesh beside train: every step's loss within TOL_MESH_LOSS of train's,
+        """train_mesh beside train (train_zamba_mesh beside train_zamba): every step's
+        loss within TOL_MESH_LOSS of the reference phase's,
         the state DTensors in the placements the rules give; the step time, MFU and
         peak memory of both (their difference is DTensor's host cost: a reading)."""
         from torch.distributed.tensor import DTensor
@@ -1839,12 +1900,12 @@ def run(args, torch) -> None:
         if not placed or not moments or len(gaps) != len(ref["losses"]) \
                 or not max(gaps) <= TOL_MESH_LOSS:
             fail(f"{out['phase']}: state placed {placed}, moments DTensors {moments}, "
-                 f"loss gaps to train {gaps} (tolerance {TOL_MESH_LOSS})")
-        print(f"  {out['phase']}: {out['ms_per_step']:.1f} ms a step (train "
+                 f"loss gaps to {ref['phase']} {gaps} (tolerance {TOL_MESH_LOSS})")
+        print(f"  {out['phase']}: {out['ms_per_step']:.1f} ms a step ({ref['phase']} "
               f"{ref['ms_per_step']:.1f}), {out['tokens_per_s']:,.0f} tokens/s "
               f"({ref['tokens_per_s']:,.0f}), MFU {100 * out['mfu']:.2f} % "
               f"({100 * ref['mfu']:.2f}), peak {out['peak_memory_bytes'] / 1e9:.2f} GB "
-              f"({ref['peak_memory_bytes'] / 1e9:.2f}); loss gaps to train <= "
+              f"({ref['peak_memory_bytes'] / 1e9:.2f}); loss gaps to {ref['phase']} <= "
               f"{max(gaps):.2e}", flush=True)
         return {"mesh": dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape)),
                 "backend": "nccl", "zero3": True, "profile_notes": list(trainer.prof.notes),
@@ -2091,6 +2152,343 @@ def run(args, torch) -> None:
         stop_if_failed(phase)
         return out
 
+    def elapsed_ms(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # sync_grads' three schedules on a bf16 tree of train's parameter shapes (2.41 G
+    # entries), drawn from a seeded generator on the card, over a one-rank NCCL
+    # group's "data" axis: "allreduce" and "rs_ag" give the tree back bit for bit (a
+    # one-rank sum, divided by 1); "int8" stays within INT8_BF16_SCALES of each leaf's
+    # scale and its new_err is exactly g - deq (deq being what a one-rank sum
+    # returns); one layer's leaves in float32 within one scale.  ms per schedule: a
+    # one-rank collective moves nothing, so the int8 passes are the only real device
+    # work.
+    def int8_worst(tree, synced) -> float:
+        """The largest |synced - g| over the leaves, in units of each leaf's scale."""
+        from repro_torch.parallel.collectives import _quantize_int8
+        return max(float((synced[n].float() - t.float()).abs().max())
+                   / float(_quantize_int8(t)[1].float()) for n, t in tree.items())
+
+    def collectives_phase(tcfg) -> dict:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel.collectives import sync_grads
+        phase = "collectives"
+        start = probe()
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        shapes = {n: tuple(p.shape) for n, p in LM(tcfg, device="meta").named_parameters()}
+        tree = {n: torch.randn(sh, generator=g, device=dev, dtype=torch.float32).to(bf16)
+                for n, sh in shapes.items()}
+        n_el = sum(t.numel() for t in tree.values())
+        out = {"phase": phase, "config": tcfg.name, "layers": tcfg.n_layers,
+               "leaves": len(tree), "entries": n_el, "bytes": 2 * n_el, "dtype": "bfloat16",
+               "ranks": 1, "backend": "nccl", "ms": {}}
+        with nccl_one_rank():
+            mesh = make_mesh((1,), ("data",))
+            for schedule in ("allreduce", "rs_ag", "int8"):
+                res = {}
+                ms = [elapsed_ms(lambda: res.update(r=sync_grads(tree, mesh, "data",
+                                                                 schedule=schedule)))
+                      for _ in range(3)]
+                synced, new_err = res.pop("r")
+                out["ms"][schedule] = ms
+                if schedule != "int8":
+                    exact = all(torch.equal(synced[n], tree[n]) for n in tree)
+                    out[f"{schedule}_bit_for_bit"] = exact
+                    if not exact or new_err is not None:
+                        fail(f"{phase}: {schedule} did not give the tree back bit for bit")
+                else:
+                    worst = int8_worst(tree, synced)
+                    err_exact = all(torch.equal(new_err[n], tree[n] - synced[n])
+                                    for n in tree)
+                    out["int8_worst_err_in_scales"] = worst
+                    out["int8_new_err_exact"] = err_exact
+                    if not worst <= INT8_BF16_SCALES or not err_exact:
+                        fail(f"{phase}: int8 error {worst:.3f} scales (limit "
+                             f"{INT8_BF16_SCALES}), new_err exactly g - deq {err_exact}")
+                del synced, new_err
+                torch.cuda.empty_cache()
+            # the reference test's dtype: one layer's leaves in float32
+            layer0 = {n: t.float() for n, t in tree.items() if n.startswith("blocks.0.")}
+            synced, _ = sync_grads(layer0, mesh, "data", schedule="int8")
+            out["int8_float32_worst_err_in_scales"] = int8_worst(layer0, synced)
+            if not out["int8_float32_worst_err_in_scales"] <= 1.0:
+                fail(f"{phase}: int8 in float32: error "
+                     f"{out['int8_float32_worst_err_in_scales']:.3f} scales (limit 1)")
+            del layer0, synced
+        print(f"  {phase}: " + ", ".join(f"{k} {float(np.median(v)):.1f} ms"
+                                         for k, v in out["ms"].items()), flush=True)
+        del tree
+        torch.cuda.empty_cache()
+        emit(with_clocks(out, start))
+        stop_if_failed(phase)
+        return out
+
+    # pipeline_forward on a one-rank "pipe" mesh: qwen2-7b's decoder layers at full
+    # width, PIPE_LAYERS stacked (pad_stages, one stage), bf16, through the port's
+    # functional attn_block / ffn_block (their RMSNorm and flash kernels), PIPE_M
+    # microbatches of 1 x PIPE_SEQ; against the same layers applied in sequence on
+    # the card: the outputs and every stage parameter's gradient of mean(out^2)
+    # within TOL_BF16's dense tolerances (the largest difference and the L2 norm of
+    # the difference, each as a share of the sequential one's), and the exact
+    # launches of both kernels, forward and backward.  Uneven stages, the padding
+    # mask and the send / recv between stages need more than one rank: one card
+    # cannot drive them (tests/test_torch_pipeline.py holds them on gloo ranks).
+    def pipeline_phase() -> dict:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models import layers as L
+        from repro_torch.parallel.pipeline import pad_stages, pipeline_forward
+        phase = "pipeline"
+        start = probe()
+        defs = {"attn": L.attn_defs(cfg), "ffn": L.ffn_defs(cfg)}
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        stacked = {}
+        for path, pd in L.flatten_defs(defs):
+            shape_ = (PIPE_LAYERS, *pd.shape)
+            if pd.init == "ones":
+                stacked[path] = torch.ones(shape_, device=dev, dtype=bf16)
+            elif pd.init == "zeros":
+                stacked[path] = torch.zeros(shape_, device=dev, dtype=bf16)
+            else:
+                scale = pd.scale if pd.scale is not None else 1.0 / math.sqrt(pd.shape[0])
+                stacked[path] = (torch.randn(shape_, generator=g, device=dev) * scale).to(bf16)
+        sp, mask = pad_stages(stacked, [PIPE_LAYERS])
+        sp = {k: v.detach().requires_grad_() for k, v in sp.items()}
+        x = (torch.randn((PIPE_M, 1, PIPE_SEQ, d), generator=g, device=dev)).to(bf16)
+        positions = torch.arange(PIPE_SEQ, device=dev)[None]
+
+        def layer_fn(p, h):
+            nest = {"attn": {}, "ffn": {}}
+            for path, t in p.items():
+                block, name = path.split(".")
+                nest[block][name] = t
+            return L.ffn_block(nest["ffn"], cfg, L.attn_block(nest["attn"], cfg, h, positions))
+
+        def sequential():
+            # the stage taken once and each layer indexed from it, as the pipeline
+            # does (each index's backward writes a zeroed gradient of what it indexes)
+            stage = {k: v[0] for k, v in sp.items()}
+            outs = []
+            for m in range(PIPE_M):
+                h = x[m]
+                for i in range(PIPE_LAYERS):
+                    h = layer_fn({k: v[i] for k, v in stage.items()}, h)
+                outs.append(h)
+            return torch.stack(outs)
+
+        def step(fn):
+            out_ = fn()
+            loss = out_.float().pow(2).mean()
+            grads_ = torch.autograd.grad(loss, list(sp.values()))
+            return out_.detach(), dict(zip(sp, grads_))
+
+        with nccl_one_rank():
+            mesh = make_mesh((1,), ("pipe",))
+            pipe = lambda: pipeline_forward(layer_fn, sp, mask, x, mesh=mesh)   # noqa: E731
+            step(pipe)                      # warm-up, outside the counts
+            torch.cuda.synchronize()
+            # the main path, with the counts at 0
+            ops.reset_launch_counts()
+            res = {}
+            pipe_ms = elapsed_ms(lambda: res.update(r=step(pipe)))
+            counts = ops.launch_counts()
+            variants = {"forward": ops.flash_launches_by_variant(),
+                        "backward": ops.flash_bwd_launches_by_variant()}
+            out_p, grads_p = res.pop("r")
+            path_counts[phase] = counts
+            path_variants[phase] = variants["forward"]
+            path_bwd_variants[phase] = variants["backward"]
+            out_s, grads_s = step(sequential)
+            seq_ms = elapsed_ms(lambda: step(sequential))
+            pipe_ms2 = elapsed_ms(lambda: step(pipe))
+        per_layer = {"rmsnorm": 2, "flash_attention": 1, "rmsnorm_bwd": 2,
+                     "flash_attention_bwd": 1}
+        want = {k: n * PIPE_LAYERS * PIPE_M for k, n in per_layer.items()}
+        fwd_kind = expected_variant(bf16, hd)
+        bwd_kind = expected_variant(bf16, hd, backward=True)
+        path_want[phase] = by_kernel(want, fwd_kind, bwd_kind)
+        if counts != want:
+            fail(f"{phase}: launched {counts}, expected {want}")
+        for way, kind, n in (("forward", fwd_kind, want["flash_attention"]),
+                             ("backward", bwd_kind, want["flash_attention_bwd"])):
+            if variants[way] != {v: n if v == kind else 0 for v in variants[way]}:
+                fail(f"{phase}: flash {way} launches by variant {variants[way]}: all {n} "
+                     f"must be {kind!r}")
+        _, tol_max, tol_l2 = TOL_BF16["gemma_7b"]
+
+        def shares(a, b):
+            a, b = a.float(), b.float()
+            return (float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30),
+                    float((a - b).norm()) / max(float(b.norm()), 1e-30))
+
+        agree = {"out": shares(out_p, out_s)}
+        agree.update({f"grad {k}": shares(grads_p[k], grads_s[k]) for k in sp})
+        worst = max(v[0] for v in agree.values()), max(v[1] for v in agree.values())
+        if not (worst[0] <= tol_max and worst[1] <= tol_l2) or \
+                not bool(torch.isfinite(out_p.float()).all()):
+            fail(f"{phase}: pipeline against sequential: worst share {worst[0]:.3e} "
+                 f"(limit {tol_max}), L2 {worst[1]:.3e} (limit {tol_l2})")
+        out = {"phase": phase, "config": cfg.name, "layers": PIPE_LAYERS, "stages": 1,
+               "microbatches": PIPE_M, "tokens": [1, PIPE_SEQ], "dtype": "bfloat16",
+               "ranks": 1, "backend": "nccl",
+               "not_driven": "uneven stages, the padding mask and send / recv need more "
+                             "than one rank (held on gloo ranks by "
+                             "tests/test_torch_pipeline.py)",
+               "launches": counts, "launches_expected": want,
+               "flash_launches_by_variant": variants,
+               "ms_fwd_bwd": [pipe_ms, pipe_ms2], "sequential_ms_fwd_bwd": seq_ms,
+               "worst_share": worst[0], "worst_rel_l2": worst[1],
+               "tol": {"largest_entry": tol_max, "l2": tol_l2},
+               "agreement": {k: {"max_share": v[0], "rel_l2": v[1]}
+                             for k, v in agree.items()}}
+        print(f"  {phase}: {pipe_ms:.1f} / {pipe_ms2:.1f} ms forward + backward against "
+              f"the sequential stack's {seq_ms:.1f}; worst share {worst[0]:.2e}, L2 "
+              f"{worst[1]:.2e}", flush=True)
+        del sp, stacked, x, out_p, grads_p, out_s, grads_s
+        torch.cuda.empty_cache()
+        emit(with_clocks(out, start))
+        stop_if_failed(phase)
+        return out
+
+    # The port's dry run (launch.dryrun: the step on fake tensors, counted) for train's
+    # cell and launch_train's, each on a fake one-rank group and a (1, 1) mesh,
+    # beside what the card measured for the same step: measured / roofline (the
+    # largest of the three terms) and the tracked / measured peak.  Readings, never
+    # gates.  Meanwhile a production cell (qwen2-7b x train_4k on the (16, 16) mesh
+    # of 256 fake ranks) runs in a subprocess, away from this process's NCCL groups:
+    # its fits, microbatches, terms and wall seconds.
+    def roofline_phase(train_cfg) -> dict:
+        from repro_torch.launch import dryrun as dr
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.config import ShapeSpec
+        phase = "roofline"
+        start = probe()
+        prod_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        t0 = time.perf_counter()
+        prod = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen2_7b",
+             "--shape", "train_4k", "--mesh", "single", "--out", prod_dir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        try:
+            cells = {}
+            for name, ccfg, shape, measured in (
+                    ("train", train_cfg, ShapeSpec("train", S_TRAIN, B_TRAIN, "train"),
+                     report["train"]),
+                    ("launch_train", get_config("zamba2_2p7b"),
+                     ShapeSpec("launch_train", S_LAUNCH, B_LAUNCH, "train"),
+                     report["launch_train"])):
+                c0 = time.perf_counter()
+                with dr.fake_group(1):
+                    mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+                    r = dr.dry_run(ccfg, shape, mesh, mesh_name="1x1", arch=name,
+                                   microbatches=1, remat="none")
+                roof_s = max(r["t_compute"], r["t_memory"], r["t_collective"])
+                cells[name] = {
+                    "config": ccfg.name, "layers": ccfg.n_layers,
+                    "tokens": [B_TRAIN if name == "train" else B_LAUNCH, shape.seq_len],
+                    **{k: r[k] for k in ("flops", "bytes", "t_compute", "t_memory",
+                                         "t_collective", "bottleneck", "model_flops",
+                                         "peak_bytes", "peak_detail", "zero3", "fits")},
+                    "measured_ms_per_step": measured["ms_per_step"],
+                    "measured_peak_bytes": measured["peak_memory_bytes"],
+                    "measured_over_roofline": measured["ms_per_step"] * 1e-3 / roof_s,
+                    "tracked_over_measured_peak": r["peak_bytes"]
+                    / measured["peak_memory_bytes"],
+                    "dry_run_s": time.perf_counter() - c0}
+                if not (r["flops"] > 0 and r["peak_bytes"] > 0):
+                    fail(f"{phase}: {name}'s dry run counted no flops or no memory: {r}")
+                if r["microbatches"] != 1:   # the measured phase's step is one batch
+                    fail(f"{phase}: {name}'s dry run escalated to {r['microbatches']} "
+                         f"microbatches (tracked peak {r['peak_bytes']:.4g} B)")
+            log, _ = prod.communicate(timeout=900)
+        finally:
+            if prod.poll() is None:
+                prod.kill()
+                prod.communicate()
+        prod_wall = time.perf_counter() - t0
+        prod_path = Path(prod_dir) / "qwen2_7b.train_4k.single.json"
+        if prod.returncode != 0 or not prod_path.is_file():
+            fail(f"{phase}: the production dry run exited {prod.returncode}: {log[-3000:]}")
+            stop_if_failed(phase)
+        rep = json.loads(prod_path.read_text())
+        shutil.rmtree(prod_dir, ignore_errors=True)
+        production = {"cell": "qwen2_7b x train_4k x single (16, 16), 256 fake ranks",
+                      **{k: rep.get(k) for k in (
+                          "status", "fits", "microbatches", "zero3", "flops", "t_compute",
+                          "t_memory", "t_collective", "bottleneck", "useful_ratio",
+                          "peak_bytes", "coll_counts", "coll_bytes", "t_step_s",
+                          "wall_s")},
+                      "subprocess_wall_s": prod_wall}
+        if rep.get("status") != "ok":
+            fail(f"{phase}: the production cell's status is {rep.get('status')}")
+        out = {"phase": phase, "constants": {"peak_flops": dr.rl.PEAK_FLOPS,
+                                             "hbm_bw": dr.rl.HBM_BW,
+                                             "hbm_bytes": dr.rl.HBM_BYTES,
+                                             "source": "H100 SXM5 datasheet"},
+               "cells": cells, "production": production}
+        for name, c in cells.items():
+            print(f"  {phase} {name}: flops {c['flops']:.3e}, compute "
+                  f"{c['t_compute'] * 1e3:.1f} ms, memory {c['t_memory'] * 1e3:.1f} ms, "
+                  f"{c['bottleneck']}-bound; measured {c['measured_ms_per_step']:.1f} ms "
+                  f"= {c['measured_over_roofline']:.2f}x; tracked peak "
+                  f"{c['peak_bytes'] / 1e9:.1f} GB = {c['tracked_over_measured_peak']:.2f}x "
+                  f"the measured", flush=True)
+        print(f"  {phase} production: fits {production['fits']}, M "
+              f"{production['microbatches']}, compute {production['t_compute']:.3f} s, "
+              f"memory {production['t_memory']:.3f} s, collective "
+              f"{production['t_collective']:.3f} s; {prod_wall:.1f} s", flush=True)
+        emit(with_clocks(out, start))
+        stop_if_failed(phase)
+        return out
+
+    # tools/calibrate_fabric_torch.py's sweep on the card: pinned host<->card copies
+    # (class "pcie", against the planner's H100 PCIe edge) and one-rank NCCL
+    # all-reduces (class "nccl"), fitted; the fitted alpha and beta, the per-class peak
+    # GB/s and the composite step's simulated against measured error.
+    def calibrate_phase() -> dict:
+        import importlib.util
+        phase = "calibrate"
+        start = probe()
+        spec = importlib.util.spec_from_file_location(
+            "calibrate_fabric_torch", ROOT / "tools" / "calibrate_fabric_torch.py")
+        cal = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cal)
+        t0 = time.perf_counter()
+        samples, measured = cal.run_card_sweep()
+        rep = cal.fit_report(samples, measured_step=measured)
+        if not (measured > 0 and all(s_["t"] > 0 for s_ in samples)
+                and {s_["cls"] for s_ in samples} == {"pcie", "nccl"}):
+            fail(f"{phase}: a sample or the composite step was not measured")
+        # a one-rank all-reduce moves no bytes: its class prices latency alone
+        latency = cal.latency_only(samples)
+        out = {"phase": phase, "alpha": rep["alpha"], "beta": rep["beta"],
+               "n_samples": rep["n_samples"], "median_residual": rep["median_residual"],
+               "classes_peak_gb_s": {c: row["peak_bw"] / 1e9
+                                     for c, row in rep["classes"].items()
+                                     if c not in latency},
+               "classes_bw_eff": {c: row["bw_eff"] for c, row in rep["classes"].items()
+                                  if c not in latency},
+               "latency_only_us": {c: t * 1e6 for c, t in latency.items()},
+               "step": rep["step"], "step_error_is": "latency pricing: the composite "
+               "step's all-reduce moves no bytes on one rank, so its error is no "
+               "bandwidth reading", "sweep_s": time.perf_counter() - t0,
+               "samples": samples}
+        print(f"  {phase}: alpha {rep['alpha']:.4g}, beta {rep['beta']:.4g}; "
+              + ", ".join(f"{c} {v:.2f} GB/s" for c, v in out["classes_peak_gb_s"].items())
+              + "".join(f", {c} latency only {v:.1f} us"
+                        for c, v in out["latency_only_us"].items())
+              + f"; step {rep['step']['measured_s'] * 1e3:.2f} ms measured, "
+              f"{rep['step']['simulated_s'] * 1e3:.2f} simulated "
+              f"({rep['step']['rel_error']:.1%}, latency pricing, not bandwidth)",
+              flush=True)
+        emit(with_clocks(out, start))
+        stop_if_failed(phase)
+        return out
+
     if not args.skip_train:
         # qwen2-7b at 8 of 28 layers: at 12 bytes a parameter (bf16 parameters and
         # gradients, fp32 moments) the full depth's 7.07 G would need 85 GB
@@ -2102,9 +2500,12 @@ def run(args, torch) -> None:
         # zamba2-2.7b at 6 of 54 layers, two cycles of (mamba, mamba, shared_attn): 4
         # Mamba2 layers and 2 occurrences of the shared block, whose attention is
         # head_dim 80 on both flash directions
-        report["train_zamba"] = train_phase(
-            "train_zamba", dataclasses.replace(get_config("zamba2_2p7b"),
-                                               n_layers=ZAMBA_TRAIN_LAYERS), steps=4)
+        zamba_cfg = dataclasses.replace(get_config("zamba2_2p7b"),
+                                        n_layers=ZAMBA_TRAIN_LAYERS)
+        report["train_zamba"] = train_phase("train_zamba", zamba_cfg, steps=4)
+        # the same through the Trainer's mesh path: the Mamba2 scan on DTensors
+        report["train_zamba_mesh"] = train_phase("train_zamba_mesh", zamba_cfg, steps=4,
+                                                 ref=report["train_zamba"])
         # zamba2-2.7b at full width and depth through the launcher (1.74 G parameters,
         # ~21 GB with AdamW), then the planner-driven Trainer at train_zamba's size
         report["launch_train"] = launch_train_phase("launch_train", get_config("zamba2_2p7b"),
@@ -2113,6 +2514,10 @@ def run(args, torch) -> None:
         report["launch_reduced"] = launch_train_phase(
             "launch_reduced", get_config("qwen2_7b").reduced(), REDUCED_ARGV)
         report["scenarios"] = scenarios_phase()
+        report["collectives"] = collectives_phase(train_cfg)
+        report["pipeline"] = pipeline_phase()
+        report["roofline"] = roofline_phase(train_cfg)
+        report["calibrate"] = calibrate_phase()
 
     # ------------------------------- serve_moe, serve_vlm, serve_audio, serve_gemma
     # The other families at full width and depth, each freed before the next

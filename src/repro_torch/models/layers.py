@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
@@ -206,16 +206,69 @@ def attn_defs(cfg) -> dict:
     return defs
 
 
+def _unsplit(y: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``y`` before its dim ``dim`` is unflattened into ``n`` leading parts: on a
+    mesh, the mesh dims that split it into shards that do not divide ``n`` are
+    gathered first, since DTensor cannot unflatten such a split.  DTensor makes
+    one when a product's weight is replicated on a mesh dim (splitting the
+    product's columns there costs nothing), as kv heads are under the
+    divisibility fallback.  A split into one part is gathered too (free on the
+    mesh dims of one rank, the only ones that divide it): the split would land
+    on the trailing part, which a later flatten could not take."""
+    if not isinstance(y, DTensor):
+        return y
+    split = [p.is_shard(dim) for p in y.placements]
+    if not any(split) or n > 1 and n % math.prod(
+            m for m, s in zip(y.device_mesh.shape, split) if s) == 0:
+        return y
+    return y.redistribute(y.device_mesh, [Replicate() if p.is_shard(dim) else p
+                                          for p in y.placements])
+
+
+class _UnsplitGrad(torch.autograd.Function):
+    """The identity on a tensor just flattened from ``n`` leading parts at dim
+    ``dim``, whose gradient goes through :func:`_unsplit` before autograd
+    unflattens it back."""
+
+    @staticmethod
+    def forward(ctx, y, dim: int, n: int):
+        ctx.dim, ctx.n = dim, n
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _unsplit(g, ctx.dim, ctx.n), None, None
+
+
+def _flattened(y: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``y``, just flattened at ``dim`` from ``n`` leading parts, made safe to
+    differentiate on a mesh (:class:`_UnsplitGrad`)."""
+    return _UnsplitGrad.apply(y, dim, n) if isinstance(y, DTensor) else y
+
+
+def _split_last(t: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """``t``'s last dim unflattened into ``(n, size)``, safe on a mesh."""
+    return _unsplit(t, t.ndim - 1, n).reshape(*t.shape[:-1], n, size)
+
+
+def _merge_last(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s last two dims ``(n, size)`` flattened, safe to differentiate on a
+    mesh."""
+    n, size = t.shape[-2:]
+    return _flattened(t.reshape(*t.shape[:-2], n * size), t.ndim - 2, n)
+
+
 def _proj_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B,S,d) x (d,N,hd) -> (B,S,N,hd) as one matrix product."""
     d, N, hd = w.shape
-    return (x @ w.reshape(d, N * hd)).reshape(*x.shape[:-1], N, hd)
+    y = _unsplit(x @ _flattened(w.reshape(d, N * hd), 1, N), x.ndim - 1, N)
+    return y.reshape(*x.shape[:-1], N, hd)
 
 
 def _proj_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """(B,S,H,hd) x (H,hd,d) -> (B,S,d)."""
     H, hd, d = wo.shape
-    return o.reshape(*o.shape[:-2], H * hd) @ wo.reshape(H * hd, d)
+    return _merge_last(o) @ _flattened(wo.reshape(H * hd, d), 0, H)
 
 
 def _qkv(p: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
@@ -239,7 +292,7 @@ def _qkv(p: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
     k = shard(k, "batch", "seq", "kv_heads", "head_dim")
     v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     G = H // KV
-    q = q.reshape(*q.shape[:2], KV, G, hd)
+    q = _unsplit(q, 2, KV).reshape(*q.shape[:2], KV, G, hd)
     return q, k, v
 
 
@@ -292,7 +345,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     B, Sq, KV, G, hd = q.shape
     Skv = k.shape[1]
     if q_positions is None and kv_positions is None:
-        q = q.reshape(B, Sq, KV * G, hd)
+        q = _flattened(q.reshape(B, Sq, KV * G, hd), 2, KV)
         if isinstance(q, DTensor):
             return _flash_local(q, k, v, causal=causal, window=window,
                                 softcap=softcap)
@@ -340,6 +393,43 @@ def attn_block(p, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     return x + shard(_proj_out(o, p["wo"]), "batch", "seq", "embed")
 
 
+def _as_dtensor(t: torch.Tensor, mesh) -> DTensor:
+    """``t`` on ``mesh``: a plain tensor (one every rank holds whole) replicated."""
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _cache_write(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = new[b]`` for every row ``b``, in place.  On a mesh the
+    cache may be split along its length (split-KV decode), where DTensor has no
+    in-place indexed write: each rank writes its own shard, the rows whose slot
+    lies in its part of the length (the others write back what they hold)."""
+    if isinstance(cache, DTensor):
+        mesh, pl = cache.device_mesh, cache.placements
+        # new (B, KV, hd) and slot (B,) split as the cache's rows, heads and head_dim
+        like_new = [Shard(p.dim - (p.dim > 1)) if p.is_shard() and p.dim != 1
+                    else Replicate() for p in pl]
+        like_slot = [Shard(0) if p.is_shard(0) else Replicate() for p in pl]
+        new = _as_dtensor(new, mesh).redistribute(mesh, like_new).to_local()
+        slot = _as_dtensor(slot, mesh).redistribute(mesh, like_slot).to_local()
+        # this rank's part of the length, as DTensor chunks it over each mesh dim
+        lo, size = 0, cache.shape[1]
+        for m, p in enumerate(pl):
+            if p.is_shard(1):
+                chunk = -(-size // mesh.size(m))
+                start = min(chunk * mesh.get_local_rank(m), size)
+                lo, size = lo + start, min(chunk, size - start)
+        at = slot - lo
+        mine = (at >= 0) & (at < size)
+        at = at.clamp(0, size - 1)
+        local = cache.to_local()
+        rows = torch.arange(local.shape[0], device=local.device)
+        local[rows, at] = torch.where(mine[:, None, None], new, local[rows, at])
+        return
+    cache[torch.arange(cache.shape[0], device=slot.device), slot] = new
+
+
 def attn_decode(p, cfg, x: torch.Tensor, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, pos: torch.Tensor, *, window: int = 0):
     """One-token decode: write the cache at ``pos`` IN PLACE, attend to it.
@@ -358,9 +448,8 @@ def attn_decode(p, cfg, x: torch.Tensor, cache_k: torch.Tensor,
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h, pos[:, None])
     wpos = pos % S if window else pos   # ring buffer for windowed attention
-    rows = torch.arange(B, device=x.device)
-    cache_k[rows, wpos] = k[:, 0]
-    cache_v[rows, wpos] = v[:, 0]
+    _cache_write(cache_k, wpos, k[:, 0])
+    _cache_write(cache_v, wpos, v[:, 0])
     kv_pos = torch.arange(S, device=x.device)[None].expand(B, S)
     if window:
         # ring buffer: slot stores token (pos - ((wpos - slot) mod S));
@@ -517,15 +606,18 @@ def moe_block(p, cfg, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     G, C, _, stok, slot, sg = moe_route(p, cfg, h)
     tg = B * S // G
-    ht = shard(h.reshape(G, tg, d), "batch", None, "embed")
+    # one group is whole on every rank: its size-1 dim split over a mesh dim of one
+    # rank could not be viewed away
+    groups = "batch" if G > 1 else None
+    ht = shard(h.reshape(G, tg, d), groups, None, "embed")
     buf = _group_local(_moe_dispatch, 1, ht, stok, slot, n_slots=E * C)
     xe = buf.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
     xe = shard(xe, "experts", "batch", "embed")
     a = _act(cfg.ffn_kind, torch.bmm(xe, p["w_gate"]))
     ye = torch.bmm(torch.bmm(xe, p["w_up"]) * a, p["w_down"])      # (E, G*C, d)
     ye = shard(ye, "experts", "batch", "embed")
-    yg = ye.reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
-    yg = shard(yg, "batch", None, "embed")
+    yg = _unsplit(ye, 1, G).reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+    yg = shard(yg, groups, None, "embed")
     out = _group_local(_moe_combine, 1, yg, stok, slot, sg, tg=tg)
     return x + shard(out.reshape(B, S, d), "batch", "seq", "embed")
 
@@ -628,6 +720,37 @@ def _mamba_scan_seq(x, B_in, C_in, dt, A_log, D, hd, *, h0=None):
     return ys.movedim(0, 1) + D[None, None, :, None] * x, h_fin
 
 
+def _local_rows_and_heads(fn, tensors, dims, out_dims):
+    """``fn(*tensors)`` on each rank's shard, for a computation independent per
+    batch row and per head (the recurrences' scans).  ``dims`` gives each input's
+    (batch dim, head dim), ``None`` where it has none (it may run past the tensors
+    given), and ``out_dims`` each output's; the batch and heads are split as the
+    active rules split them in ``tensors[0]``, every other dim whole.  An input
+    whole on a mesh dim that splits the work (``B`` over heads, ``A`` over batch
+    rows) takes a partial-sum gradient there.  Run as DTensor ops, the scans'
+    products flatten a batch dim and a head dim together, which DTensor cannot do
+    where both are split (it raises in torch 2.11)."""
+    first = tensors[0]
+    mesh, rules = active_rules() or (first.device_mesh, AxisRules())
+    axes = [None] * first.ndim
+    axes[dims[0][0]], axes[dims[0][1]] = "batch", "heads"
+    split = [None if not p.is_shard() else "batch" if p.dim == dims[0][0] else "heads"
+             for p in rules.placements(axes, first.shape, mesh)]
+
+    def placed(bd, hd):
+        return tuple(Shard(bd) if k == "batch" and bd is not None else
+                     Shard(hd) if k == "heads" and hd is not None else Replicate()
+                     for k in split)
+
+    ins = [placed(*d) for _, d in zip(tensors, dims)]
+    grads = [tuple(Partial() if k and not p.is_shard() else p for k, p in zip(split, pl))
+             for pl in ins]
+    tensors = [_as_dtensor(t, mesh) for t in tensors]
+    return local_map(fn, out_placements=tuple(placed(*d) for d in out_dims),
+                     in_placements=tuple(ins), in_grad_placements=tuple(grads),
+                     redistribute_inputs=True)(*tensors)
+
+
 MAMBA_CHUNK = 128
 
 
@@ -644,6 +767,13 @@ def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
     boundary states run in order (one small update a chunk); the products of
     all chunks with their incoming states are then taken at once.
     """
+    if isinstance(x, DTensor):
+        args = (x, B_in, C_in, dt, A_log, D) + ((h0,) if h0 is not None else ())
+        return _local_rows_and_heads(
+            lambda *a: _mamba_scan(*a[:6], hd, h0=a[6] if len(a) > 6 else None,
+                                   chunk=chunk),
+            args, ((0, 2), (0, None), (0, None), (0, 2), (None, 0), (None, 0), (0, 1)),
+            ((0, 2), (0, 1)))
     Bb, S, nh, _ = x.shape
     if S % chunk or S <= chunk:
         return _mamba_scan_seq(x, B_in, C_in, dt, A_log, D, hd, h0=h0)
@@ -712,9 +842,9 @@ def mamba_block(p, cfg, x: torch.Tensor, *, state=None, conv_state=None):
     B_in = h @ p["w_B"]
     C_in = h @ p["w_C"]
     dt = _softplus(h @ p["w_dt"] + p["dt_bias"])
-    y, h_fin = _mamba_scan(xc.reshape(Bb, -1, nh, hd), B_in, C_in, dt,
+    y, h_fin = _mamba_scan(_split_last(xc, nh, hd), B_in, C_in, dt,
                            p["A_log"], p["D"], hd, h0=state)
-    y = y.reshape(Bb, -1, e) * F.silu(z)
+    y = _merge_last(y) * F.silu(z)
     y = rms_norm(y, p["gn"], cfg.norm_eps)
     return x + shard(y @ p["w_out"], "batch", "seq", "embed"), h_fin, new_conv
 
@@ -800,11 +930,31 @@ def mlstm_block(p, cfg, x: torch.Tensor, *, state=None):
     hd = e // H
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     u = F.silu(h @ p["w_up"])
-    q = (u @ p["wq"]).reshape(Bb, S, H, hd)
-    k = (u @ p["wk"]).reshape(Bb, S, H, hd) / math.sqrt(hd)
-    v = (u @ p["wv"]).reshape(Bb, S, H, hd)
+    q = _split_last(u @ p["wq"], H, hd)
+    k = _split_last(u @ p["wk"], H, hd) / math.sqrt(hd)
+    v = _split_last(u @ p["wv"], H, hd)
     it = (u @ p["w_i"]).float()
     ft = (u @ p["w_f"]).float()
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = (torch.zeros((Bb, H, hd, hd), **f32), torch.zeros((Bb, H, hd), **f32),
+                 torch.full((Bb, H), NEG_INF, **f32))
+    scan = functools.partial(_mlstm_scan, dtype=x.dtype)
+    if isinstance(q, DTensor):
+        ys, *state = _local_rows_and_heads(scan, (q, k, v, it, ft, *state),
+                                           ((0, 2),) * 5 + ((0, 1),) * 3,
+                                           ((0, 2),) + ((0, 1),) * 3)
+    else:
+        ys, *state = scan(q, k, v, it, ft, *state)
+    y = _merge_last(ys) * F.silu(u @ p["w_o"])
+    return x + y @ p["w_down"], tuple(state)
+
+
+def _mlstm_scan(q, k, v, it, ft, C, n, m, *, dtype):
+    """The mLSTM's recurrence over (B,S,H,...) inputs from state ``(C, n, m)``:
+    chunkwise when ``S % MLSTM_CHUNK == 0 and S > MLSTM_CHUNK``, the sequential
+    step otherwise.  Returns (y (B,S,H,hd) in ``dtype``, C, n, m)."""
+    S = q.shape[1]
 
     def step(carry, inp):
         C, n, m = carry                       # (B,H,hd,hd), (B,H,hd), (B,H)
@@ -819,21 +969,14 @@ def mlstm_block(p, cfg, x: torch.Tensor, *, state=None):
         num = torch.einsum("bhkv,bhk->bhv", C, qt.float())
         den = torch.abs(torch.einsum("bhk,bhk->bh", n, qt.float()))
         y = num / torch.clamp(den, min=1.0)[..., None]
-        return (C, n, m_new), y.to(x.dtype)
+        return (C, n, m_new), y.to(dtype)
 
-    if state is None:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        state = (torch.zeros((Bb, H, hd, hd), **f32), torch.zeros((Bb, H, hd), **f32),
-                 torch.full((Bb, H), NEG_INF, **f32))
     if S % MLSTM_CHUNK == 0 and S > MLSTM_CHUNK:
-        ys, state = _mlstm_chunkwise(q, k, v, it, ft, state, chunk=MLSTM_CHUNK)
-        y = ys.to(x.dtype).reshape(Bb, S, e)
-    else:
-        xs = tuple(t.movedim(1, 0) for t in (q, k, v, it, ft))
-        state, ys = chunked_time_scan(step, state, xs)
-        y = ys.movedim(0, 1).reshape(Bb, S, e)
-    y = y * F.silu(u @ p["w_o"])
-    return x + y @ p["w_down"], state
+        ys, state = _mlstm_chunkwise(q, k, v, it, ft, (C, n, m), chunk=MLSTM_CHUNK)
+        return (ys.to(dtype), *state)
+    xs = tuple(t.movedim(1, 0) for t in (q, k, v, it, ft))
+    state, ys = chunked_time_scan(step, (C, n, m), xs)
+    return (ys.movedim(0, 1), *state)
 
 
 def slstm_defs(cfg) -> dict:
@@ -864,8 +1007,8 @@ def slstm_block(p, cfg, x: torch.Tensor, *, state=None):
     def step(carry, inp):
         c, n, hprev, m = carry
         (g_in,) = inp
-        g = g_in.reshape(Bb, H, 4 * hd) + torch.einsum("bhk,hkf->bhf", hprev,
-                                                       p["r_zifo"])
+        g = _split_last(g_in, H, 4 * hd) + torch.einsum("bhk,hkf->bhf", hprev,
+                                                          p["r_zifo"])
         zt, it, ft, ot = torch.chunk(g.float(), 4, dim=-1)
         it, ft = it.mean(-1), ft.mean(-1)                  # scalar gates per head
         logf = -_softplus(-ft)
@@ -883,7 +1026,7 @@ def slstm_block(p, cfg, x: torch.Tensor, *, state=None):
                  torch.zeros((Bb, H, hd), dtype=x.dtype, device=x.device),
                  torch.full((Bb, H), NEG_INF, **f32))
     state, ys = chunked_time_scan(step, state, (zifo.movedim(1, 0),))
-    y = rms_norm(ys.movedim(0, 1).reshape(Bb, S, d), p["gn"], cfg.norm_eps)
+    y = rms_norm(_merge_last(ys.movedim(0, 1)), p["gn"], cfg.norm_eps)
     up, gate = torch.chunk(y @ p["w_up"], 2, dim=-1)
     return x + (up * F.gelu(gate, approximate="tanh")) @ p["w_down"], state
 
@@ -911,7 +1054,7 @@ def cross_attn_block(p, cfg, x: torch.Tensor, memory: torch.Tensor) -> torch.Ten
     B, S, d = x.shape
     KV, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q = _proj_in(h, p["wq"]).reshape(B, S, KV, H // KV, hd)
+    q = _unsplit(_proj_in(h, p["wq"]), 2, KV).reshape(B, S, KV, H // KV, hd)
     k = _proj_in(memory, p["wk"])
     v = _proj_in(memory, p["wv"])
     o = mha(q, k, v, causal=False, q_chunk=cfg.attn_q_chunk)

@@ -128,6 +128,15 @@ def init_train_state(model: LM, generator: torch.Generator) -> dict:
     return {"params": params, "opt": init_opt_state(params)}
 
 
+def abstract_train_state(model: LM, opt_shardings: dict | None = None) -> dict:
+    """``model``'s train state without drawing its weights: its own parameters as
+    they are and zeroed moments, under ``opt_shardings`` (parameter name ->
+    ``NamedSharding``) when given.  Built under ``FakeTensorMode`` it holds no
+    storage, as the reference's ``ShapeDtypeStruct`` state does (the dry run)."""
+    params = dict(model.named_parameters())
+    return {"params": params, "opt": init_opt_state(params, opt_shardings)}
+
+
 def make_prefill_step(model: LM) -> Callable:
     """Returns ``prefill_step(batch) -> (last-token logits, stacked cache)``;
     ``batch = {"tokens": (B,S) int, [audio_embed | vision_embed]}``."""

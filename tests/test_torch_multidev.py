@@ -13,14 +13,6 @@ restore lands bit for bit on the rebuilt placements; and ``restore`` onto
 shardings.
 """
 
-import os
-import socket
-import subprocess
-import sys
-import textwrap
-import time
-from pathlib import Path
-
 import numpy as np
 import pytest
 
@@ -34,56 +26,11 @@ from repro.models.lm import LM as JaxLM  # noqa: E402
 from repro.optim.adamw import AdamWConfig as JaxAdamWConfig  # noqa: E402
 from repro.parallel.trainstep import init_train_state as jax_init_state  # noqa: E402
 from repro.parallel.trainstep import make_train_step as jax_train_step  # noqa: E402
+from torch_ranks import run_ranks  # noqa: E402
 
 # every case starts 2-8 interpreters that each import torch; excluded from the
 # CI gate's fast subset as the reference's multi-device tests are
 pytestmark = pytest.mark.slow
-
-SRC = str(Path(__file__).resolve().parents[1] / "src")
-# a case takes 3-20 s alone; the limit leaves room for a loaded machine and still
-# ends a hung rank long before the test run's own limit
-RANK_TIMEOUT_S = 240
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(body: str, n: int, timeout: float = RANK_TIMEOUT_S) -> list[str]:
-    """Run ``body`` in ``n`` fresh interpreters, ranks of one gloo group (``RANK``
-    and ``WORLD`` are defined in it); every rank must exit 0 within ``timeout``
-    seconds.  Returns each rank's output."""
-    head = textwrap.dedent(f"""
-        import sys
-        import numpy as np
-        import torch
-        import torch.distributed as dist
-        torch.set_num_threads(1)
-        RANK, WORLD = int(sys.argv[1]), {n}
-        dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{_free_port()}",
-                                world_size=WORLD, rank=RANK)
-    """)
-    code = head + textwrap.dedent(body) + "\ndist.destroy_process_group()\n"
-    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], env=env, text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for r in range(n)]
-    deadline, outs = time.monotonic() + timeout, []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 0.1))[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        for p in procs:
-            p.communicate()
-        pytest.fail(f"a rank did not finish within {timeout} s")
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-6000:]}"
-    return outs
-
 
 # ------------------------------------------------------------ the sharded step
 
@@ -255,6 +202,132 @@ def test_global_norm_reduces_once_over_the_mesh():
     """, 4)
 
 
+def test_decode_on_a_mesh_matches_one_device():
+    """8 ranks, a (2, 4) mesh: reduced gemma-7b (4 query heads, 2 kv heads, so the
+    reference's rules split the decode cache's length over "model") prefills 16
+    tokens on one device; the next decode step runs on the mesh, its parameters,
+    cache and batch placed under the reference's shardings, and gives the
+    one-device step's logits within 1e-4 and its cache within 1e-5 (the new k and v
+    are products summed over "data" shards in another order).  DTensor has no
+    in-place indexed write into a cache split along its length; each rank writes the
+    slot into its own shard where it holds it."""
+    run_ranks("""
+        from torch.distributed.tensor.experimental import implicit_replication
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.lm import LM
+        from repro_torch.parallel import sharding as shd
+        from repro_torch.parallel.axes import distribute, full, use_rules
+        cfg = get_config("gemma_7b").reduced(dtype="float32")
+        B, S, T = 4, 16, 24
+        one = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).long()
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1))).long(),
+                 "pos": torch.full((B,), S, dtype=torch.long)}
+        with torch.no_grad():
+            _, stacked = one.prefill(tokens)
+            cache = one.serving_cache(stacked, S, T)
+            copy = full(tuple({k: v.clone() for k, v in e.items()} for e in cache))
+            want, want_cache = one.decode_step(cache, batch["tokens"], batch["pos"])
+            mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+            prof = shd.profile_for(cfg, mesh, zero3=True)
+            assert prof.rules.physical("kv_seq") == ("model",)
+            model = LM(cfg, device="cpu")
+            model.load_state_dict(one.state_dict())
+            shd.distribute_params(model, shd.module_shardings(
+                model, shd.param_shardings(model, mesh, prof.rules)))
+            placed = distribute(copy, shd.cache_shardings(model, mesh, prof.rules, B, T))
+            b = distribute(batch, shd.batch_shardings(mesh, batch, prof.rules))
+            with use_rules(mesh, prof.rules), implicit_replication():
+                got, got_cache = model.decode_step(placed, b["tokens"], b["pos"])
+            got, got_cache = full(got), full(got_cache)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+        for g_e, w_e in zip(got_cache, want_cache):
+            for k in w_e:
+                np.testing.assert_allclose(g_e[k].numpy(), w_e[k].numpy(), atol=1e-5, rtol=0)
+    """, 8)
+
+
+def test_mamba_scan_runs_on_each_ranks_shard():
+    """4 ranks, a (2, 2) mesh: the SSD scan on DTensors whose batch rows are split
+    over "data" and heads over "model" (the reference's rules for zamba2), chunkwise
+    over 256 steps from a zero state and sequentially over 64 from a given state,
+    gives the one-device output and final state within 1e-5 and every input's
+    gradient within 1e-4 or 1e-5 of its size (A's and D's are sums over every row
+    and step, summed in another order), and none of its products runs as a DTensor op.  As
+    DTensor ops the chunkwise products flatten a split batch dim with a split head
+    dim, which torch 2.11's DTensor refuses (zamba2's Trainer on a one-card mesh
+    raised there); each rank runs the scan on its own shard."""
+    run_ranks("""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        from torch.distributed.tensor.experimental import implicit_replication
+        from torch.overrides import TorchFunctionMode
+        from torch.utils._pytree import tree_leaves
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.layers import _mamba_scan
+        from repro_torch.parallel import sharding as shd
+        from repro_torch.parallel.axes import full, use_rules
+
+        class DTensorEinsums(TorchFunctionMode):
+            def __init__(self):
+                super().__init__()
+                self.seen = []
+
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if func is torch.einsum and any(isinstance(a, DTensor)
+                                                for a in tree_leaves((args, kwargs))):
+                    self.seen.append(args[0])
+                return func(*args, **(kwargs or {}))
+
+        mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+        rules = shd.profile_for(get_config("zamba2_2p7b").reduced(dtype="float32"),
+                                mesh, zero3=True).rules
+        B, nh, hd, N = 4, 4, 8, 16
+        axes = [("batch", None, "heads", None), ("batch", None, None),
+                ("batch", None, None), ("batch", None, "heads"), ("heads",), ("heads",),
+                ("batch", "heads", None, None)]
+        for S, with_state in ((256, False), (64, True)):
+            rng = np.random.default_rng(S)
+            shapes = [(B, S, nh, hd), (B, S, N), (B, S, N), (B, S, nh), (nh,), (nh,),
+                      (B, nh, hd, N)]
+            vals = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                    for sh in shapes]
+            vals[3] = torch.nn.functional.softplus(vals[3])      # dt > 0
+            if not with_state:
+                vals, axes_ = vals[:6], axes[:6]
+            else:
+                axes_ = axes
+            gy = torch.from_numpy(rng.standard_normal((B, S, nh, hd)).astype(np.float32))
+            gh = torch.from_numpy(rng.standard_normal((B, nh, hd, N)).astype(np.float32))
+
+            def run(ins):
+                y, h = _mamba_scan(*ins[:6], hd, h0=ins[6] if len(ins) > 6 else None)
+                ((y * gy).sum() + (h * gh).sum()).backward()
+                return y, h
+
+            one = [v.clone().requires_grad_() for v in vals]
+            y0, h0 = run(one)
+            placed = [distribute_tensor(v.clone(), mesh,
+                                        rules.placements(a, v.shape, mesh)).requires_grad_()
+                      for v, a in zip(vals, axes_)]
+            gy = distribute_tensor(gy, mesh, rules.placements(axes[0], gy.shape, mesh))
+            gh = distribute_tensor(gh, mesh, rules.placements(axes[6], gh.shape, mesh))
+            with use_rules(mesh, rules), implicit_replication(), DTensorEinsums() as mode:
+                y1, h1 = run(placed)
+            assert mode.seen == [], mode.seen
+            assert [p.is_shard() for p in y1.placements] == [True, True], y1.placements
+            np.testing.assert_allclose(full(y1).detach().numpy(), y0.detach().numpy(),
+                                       atol=1e-5, rtol=0)
+            np.testing.assert_allclose(full(h1).detach().numpy(), h0.detach().numpy(),
+                                       atol=1e-5, rtol=0)
+            for i, (a, b) in enumerate(zip(placed, one)):
+                np.testing.assert_allclose(full(a.grad).numpy(), b.grad.numpy(),
+                                           atol=1e-4, rtol=1e-5, err_msg=f"input {i}")
+    """, 4)
+
+
 # ------------------------------------------------------------ the Trainer on a mesh
 
 FAMILY_MESH = {a: ((4, 1) if a == "zamba2_2p7b" else (2, 2)) for a in ARCH_IDS}
@@ -263,12 +336,17 @@ FAMILY_MESH = {a: ((4, 1) if a == "zamba2_2p7b" else (2, 2)) for a in ARCH_IDS}
 # ZeRO-3 for every family; ZeRO-1 (parameters replicated over "data", moments
 # sharded on it) for the dense family, the launcher's and a mixture of experts
 ZERO1_ARCHS = ("qwen2_7b", "zamba2_2p7b", "qwen3_moe_30b_a3b")
-TRAINER_CASES = [pytest.param(a, True, id=a) for a in ARCH_IDS] + \
-    [pytest.param(a, False, id=f"{a}-zero1") for a in ZERO1_ARCHS]
+# (arch, zero3, mesh shape, tokens a row, torch 2.11's view rule)
+TRAINER_CASES = [pytest.param(a, True, FAMILY_MESH[a], 32, False, id=a) for a in ARCH_IDS] + \
+    [pytest.param(a, False, FAMILY_MESH[a], 32, False, id=f"{a}-zero1")
+     for a in ZERO1_ARCHS] + \
+    [pytest.param("gemma_7b", True, (2, 4), 32, False, id="gemma_7b-2x4")] + \
+    [pytest.param(a, True, (1, 1), 256, True, id=f"{a}-1x1-strict-views")
+     for a in ("zamba2_2p7b", "xlstm_125m", "qwen3_moe_30b_a3b")]
 
 
-@pytest.mark.parametrize("arch,zero3", TRAINER_CASES)
-def test_trainer_on_a_mesh_matches_one_device(arch, zero3, tmp_path):
+@pytest.mark.parametrize("arch,zero3,shape,seq,strict", TRAINER_CASES)
+def test_trainer_on_a_mesh_matches_one_device(arch, zero3, shape, seq, strict, tmp_path):
     """``Trainer(mesh=..., zero3=...)`` against the one-device ``Trainer`` from
     the same seed over the same batches: every step's loss within 1e-4; each
     parameter's change over the two steps within 2e-2 of the one-device
@@ -276,8 +354,18 @@ def test_trainer_on_a_mesh_matches_one_device(arch, zero3, tmp_path):
     5.0e-3 at worst, zamba2's embedding), and within 2e-3 an entry; the state
     in the profile's placements (under ZeRO-1 some moments placed otherwise
     than their parameters), and no parameter left unsharded where the rules
-    shard it."""
-    shape = FAMILY_MESH[arch]
+    shard it.  Reduced gemma on ``(2, 4)`` has 4 query heads and 2 kv heads on a
+    model axis of 4: DTensor splits the kv projections' columns over "model",
+    which the heads must be gathered from before they unflatten (forward and
+    backward), as the reference's production cells with kv heads that do not
+    divide the model axis need.  The ``strict-views`` cases run one rank's
+    ``(1, 1)`` mesh, as a single card does, and 256 tokens, so zamba2's and xlstm's
+    scans take their chunkwise forms, under torch 2.11's view rule
+    (``torch_ranks.STRICT_VIEWS``): there the scans' products as DTensor ops and
+    the MoE's expert outputs, whose row split lands on the capacity when the token
+    groups do not divide it, flattened a split dim that was not the first of its
+    group; the scans now run on each rank's shard, and those rows are gathered
+    before they unflatten."""
     run_ranks(f"""
         import contextlib, io
         from torch.distributed.tensor import DTensor
@@ -288,7 +376,7 @@ def test_trainer_on_a_mesh_matches_one_device(arch, zero3, tmp_path):
         from repro_torch.parallel.sharding import module_shardings
         from repro_torch.runtime.trainer import Trainer, TrainerConfig
         cfg = get_config({arch!r}).reduced(dtype="float32")
-        tc = TrainerConfig(arch=cfg, steps=2, global_batch=4, seq_len=32, ckpt_every=0,
+        tc = TrainerConfig(arch=cfg, steps=2, global_batch=4, seq_len={seq}, ckpt_every=0,
                            log_every=1, remat="none", device="cpu", zero3={zero3},
                            ckpt_dir={str(tmp_path)!r},
                            opt=AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10))
@@ -324,7 +412,7 @@ def test_trainer_on_a_mesh_matches_one_device(arch, zero3, tmp_path):
                 assert err < 2e-3, (k, err)
                 rel = ((d1 - d0).norm() / d0.norm()).item()
                 assert rel < 2e-2, (k, rel)
-    """, shape[0] * shape[1])
+    """, shape[0] * shape[1], strict_views=strict)
 
 
 # ------------------------------------------------------------ elastic restore

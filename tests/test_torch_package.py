@@ -21,7 +21,9 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
            ROOT / "tools" / "profile_serve_torch.py", ROOT / "tools" / "profile_train_torch.py",
            ROOT / "tools" / "flash_bench.py", ROOT / "tools" / "flash_bwd_phases.py",
            ROOT / "tools" / "flash_fwd_phases.py", ROOT / "tools" / "flash_hd80_variants.py",
-           ROOT / "tools" / "count_collectives.py", ROOT / "tools" / "train_mesh_norm.py"]
+           ROOT / "tools" / "count_collectives.py", ROOT / "tools" / "train_mesh_norm.py",
+           ROOT / "tools" / "calibrate_fabric_torch.py",
+           ROOT / "tools" / "fig3_allreduce_torch.py"]
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 FORBIDDEN_CALLS = ("scaled_dot_product_attention", "rms_norm", "compile")
 
@@ -84,7 +86,9 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.core, repro_torch.obs, repro_torch.scenarios, "
             "repro_torch.scenarios.harness, repro_torch.service, "
             "repro_torch.parallel.axes, repro_torch.parallel.sharding, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.parallel.collectives, "
+            "repro_torch.parallel.pipeline, repro_torch.launch.roofline, "
+            "repro_torch.launch.dryrun, repro_torch.launch.summarize; "
             "print(len(repro_torch.configs.all_configs()))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
