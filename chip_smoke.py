@@ -22,9 +22,10 @@ average taken at the phase's start and end (read only, never a check):
            the serving and training paths give it: the forwards, the attention
            forward's lse, and the two backwards (dq, dk, dv; dx, dw); records which
            flash variant each case launched, forward and backward (16-bit head_dim
-           64/80/128/256 wgmma both ways, 16/32 mma.sync, fp32 scalar), shows that
-           a call either wgmma kernel cannot take raises instead of running another
-           variant or a plain version, and that a head_dim compiled into neither direction (96) is
+           64/80/128/256 wgmma both ways, 16/32 mma.sync, fp32 tf32x3), shows that
+           a call a TMA kernel cannot take (wgmma in 16 bits, tf32x3 in fp32) raises
+           instead of running another variant or a plain version, and that a head_dim
+           compiled into neither direction (96) is
            refused by the autograd wrapper, both launchers and both C entries and
            launches nothing, that two backward calls on the same inputs give dk,
            dv, dx and dw bit for bit at the training shapes of qwen2-7b, zamba2-2.7b
@@ -51,12 +52,16 @@ average taken at the phase's start and end (read only, never a check):
            tokens): the flash forward and backward held and timed beside SDPA's, the
            RMSNorm forward at 2560 and 5120 held and timed, its backward held there
            and at train_zamba's 2 x 4096 rows; launch_reduced's (the reduced float32
-           qwen2-7b, 8 x 256 tokens): the scalar fp32 flash forward and backward held
-           and timed beside SDPA's;
+           qwen2-7b, 8 x 256 tokens): the fp32 flash forward and backward (the
+           3xTF32 kernels) held and timed beside SDPA's, and replayed from a CUDA
+           graph; two fp32 backward calls giving dq, dk and dv bit for bit there and
+           at head_dim 80 and 256; both fp32 kernels timed at qwen2-7b's training
+           shape beside SDPA in fp32; the 16-bit mma.sync forward at head_dim 32 and
+           16 timed beside SDPA;
   small    reduced fp32 models on the card (through the kernels) against the same
            weights on the CPU (plain versions), one per family: qwen2-7b, gemma-7b,
            qwen3-32b, granite-34b, qwen3-moe, dbrx, llama-3.2-vision, whisper, zamba2,
-           xlstm, and zamba2 again at its own head_dim 80, there on the scalar
+           xlstm, and zamba2 again at its own head_dim 80, there on the tf32x3
            flash kernels; a 32-token prompt, longer
            than the vision and audio models' 16 patches / 24 frames, and twice
            zamba2's 16-token window, so its ring wraps:
@@ -133,8 +138,8 @@ average taken at the phase's start and end (read only, never a check):
   launch_reduced  the North star's own command, in-process: `python -m
            repro_torch.launch.train --arch qwen2_7b --reduced --plan auto --steps 8`
            (the reduced fp32 qwen2-7b, 8 x 256 tokens), the [plan] line checked as in
-           launch_train, exact launches per step (its fp32 flash on the scalar
-           kernel), finite losses;
+           launch_train, exact launches per step (its fp32 flash on the tf32x3
+           kernels), finite losses;
   scenarios  host only: the port's ScenarioHarness over two seeds of one catalog
            scenario, sequentially and in 2 worker processes (equal timelines), and
            a PlannerService replay of a multi-tenant stream serially and with 4
@@ -202,6 +207,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_TENSOR_16BIT_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+# float32-accurate products on the tensor cores: three TF32 products (495 TFLOP/s
+# dense) for each float32 one, as the float32 flash kernels compute them (3xTF32)
+PEAK_TF32X3_FLOPS = 495e12 / 3
 
 # The reference's kernel test cases: (B, Sq, Skv, H, KV, hd, causal, window)
 FLASH_CASES = [
@@ -287,7 +295,7 @@ SMALL_ARCHS = ("qwen2_7b", "gemma_7b", "qwen3_32b", "granite_34b", "qwen3_moe_30
                "xlstm_125m")
 # reduced models at another head_dim than reduced()'s 32: zamba2 at its own 80, so
 # that the card-against-CPU steps run the head_dim-80 flash kernels too.  The small
-# phase is float32, so these are the scalar kernels; the 16-bit ones are held whole by
+# phase is float32, so these are the tf32x3 kernels; the 16-bit ones are held whole by
 # the bf16 check below (BF16_MODELS) and run in serve_zamba and train_zamba
 SMALL_HEAD_DIMS = (("zamba2_2p7b", 80),)
 # The bf16 whole-model check: reduced() widths at the architecture's own head_dim, one
@@ -303,12 +311,14 @@ SCENARIO = "fig6c_dynamic_bw"    # the scenarios phase's catalog scenario
 SM90_HEAD_DIMS = (64, 80, 128, 256)   # 16-bit head_dims the forward runs on the wgmma kernel
 SM90_BWD_HEAD_DIMS = (64, 80, 128, 256)   # ... and the backward
 # the kernels line's entry of each flash variant, forward (every 16-bit head_dim a
-# path has is a wgmma one; launch_reduced's float32 model runs the scalar kernel) and
-# backward (likewise; the mma.sync passes, at head_dim 16 and 32, run on no main path)
-FLASH_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention", "scalar": "flash_attention_scalar"}
+# path has is a wgmma one; every float32 model, launch_reduced's among them, runs the
+# tf32x3 kernels; the mma.sync kernel, at head_dim 16 and 32, runs on no main path)
+# and backward (likewise)
+FLASH_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention", "tf32x3": "flash_attention_tf32x3",
+                         "mma_sync": "flash_attention_mma_sync"}
 FLASH_BWD_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention_bwd",
                              "mma_sync": "flash_attention_bwd_mma_sync",
-                             "scalar": "flash_attention_bwd_scalar"}
+                             "tf32x3": "flash_attention_bwd_tf32x3"}
 UNCOMPILED_HEAD_DIM = 96          # compiled into neither direction: must be refused
 RMSNORM_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64)]
 
@@ -557,7 +567,7 @@ def run(args, torch) -> None:
     def bf16_model_check(arch: str, head_dim: int, seed: int) -> dict:
         """One train step's loss and gradients of reduced `arch` at its own `head_dim`
         in bf16 on the card (the 16-bit flash kernels, wgmma both ways) against the
-        same bf16-rounded weights in float32 on the card (the scalar kernels): the
+        same bf16-rounded weights in float32 on the card (the tf32x3 kernels): the
         losses' absolute difference and, for every parameter, the largest gradient
         difference as a share of the float32 gradient's largest magnitude and the
         difference's L2 norm as a share of the float32 gradient's."""
@@ -579,7 +589,7 @@ def run(args, torch) -> None:
             losses[name] = float(loss)
             variants[name] = {"forward": ops.flash_launches_by_variant(),
                               "backward": ops.flash_bwd_launches_by_variant()}
-            want = "scalar" if name == "float32" else "sm90_wgmma"
+            want = "tf32x3" if name == "float32" else "sm90_wgmma"
             for way, by in variants[name].items():
                 if not by[want] or any(n for kind, n in by.items() if kind != want):
                     fail(f"bf16 check {arch}@{head_dim} {name}: flash {way} launches {by}, "
@@ -631,7 +641,7 @@ def run(args, torch) -> None:
 
     def expected_variant(dtype, hd, backward: bool = False) -> str:
         if dtype == torch.float32:
-            return "scalar"
+            return "tf32x3"
         wgmma = SM90_BWD_HEAD_DIMS if backward else SM90_HEAD_DIMS
         return "sm90_wgmma" if hd in wgmma else "mma_sync"
 
@@ -700,28 +710,32 @@ def run(args, torch) -> None:
         for case in FLASH_SOFTCAP_CASES:
             flash_bwd_cases.append(flash_bwd_case(case, dtype, scale=3.0, softcap=20.0))
 
-    # A call the wgmma kernel cannot take must raise, never run another variant:
-    # q one element past a 16-byte boundary (the wrapper refuses it first, so the
-    # C launcher is called directly) cannot be described by a tensor map.  Held at
-    # head_dim 128, 256 and 80.
+    # A call a TMA kernel cannot take must raise, never run another variant: q one
+    # element past a 16-byte boundary (the wrapper refuses it first, so the C
+    # launcher is called directly) cannot be described by a tensor map.  Held for the
+    # wgmma kernel at head_dim 128, 256 and 80, and for the float32 (tf32x3) one at
+    # 128 and 80.
     lib = _build.load()
 
-    def misaligned_q(case):
-        q, k, v = flash_inputs(case, torch.bfloat16)
+    def misaligned_q(case, dtype=torch.bfloat16):
+        q, k, v = flash_inputs(case, dtype)
         q_off = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
         q_off.copy_(q)
         return q, k, v, q_off
 
     refusal = []
-    for case in (FLASH_TILE_EDGE_CASES[0], FLASH_TILE_EDGE_CASES[4], FLASH_HD80_CASES[0]):
-        q, k, v, q_off = misaligned_q(case)
+    bf16_ = torch.bfloat16
+    for case, dtype in ((FLASH_TILE_EDGE_CASES[0], bf16_), (FLASH_TILE_EDGE_CASES[4], bf16_),
+                        (FLASH_HD80_CASES[0], bf16_), (FLASH_TILE_EDGE_CASES[0], torch.float32),
+                        (FLASH_HD80_CASES[0], torch.float32)):
+        q, k, v, q_off = misaligned_q(case, dtype)
         o = torch.full_like(q, float("nan"))
         torch.cuda.synchronize()
         code = lib.repro_flash_attention_fwd(
             q_off.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, case[0],
             case[1], case[2], case[3], case[4], case[5], *q_off.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 1, 0, 0.0,
-            _build.DTYPE_CODES[torch.bfloat16], 0, torch.cuda.current_stream().cuda_stream)
+            _build.DTYPE_CODES[dtype], 0, torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         try:
             _build.check(code, "flash_attention")
@@ -731,43 +745,45 @@ def run(args, torch) -> None:
         if code != -3 or not raised or not bool(torch.isnan(o).all()):
             fail(f"misaligned q {case}: launcher returned {code} (want -3, a refusal), "
                  f"raised {raised!r}, output touched: {not bool(torch.isnan(o).all())}")
-        refusal.append({"case": list(case), "dtype": "torch.bfloat16", "q_offset_bytes": 2,
-                        "code": code, "raised": raised})
+        refusal.append({"case": list(case), "dtype": str(dtype),
+                        "q_offset_bytes": q.element_size(), "code": code, "raised": raised})
         del q, k, v, q_off, o
+    # the same for the backward's TMA kernels (wgmma in bf16, tf32x3 in float32): the
+    # launcher refuses before it launches anything, and dq, dk, dv stay untouched
     case = FLASH_TILE_EDGE_CASES[0]
-    q, k, v, q_off = misaligned_q(case)
-
-    # the same for the backward's wgmma kernel: its launcher refuses before it
-    # launches anything, and dq, dk, dv stay untouched
-    o, lse = flash_mod.launch_forward(q, k, v, True, 0, 0.0, with_lse=True)
-    do = randn(q.shape, torch.bfloat16)
-    grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
-    delta, dq_acc = flash_mod._bwd_scratch("sm90_wgmma", q)
-    call = _build.FlashBwdCall(
-        q=q_off.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
-        dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
-        dq_acc=dq_acc.data_ptr(), dq=grads[0].data_ptr(), dk=grads[1].data_ptr(),
-        dv=grads[2].data_ptr(), stream=torch.cuda.current_stream().cuda_stream,
-        B=case[0], Sq=case[1], Skv=case[2], H=case[3], KV=case[4], hd=case[5], causal=1,
-        window=0, softcap=0.0, dtype=_build.DTYPE_CODES[torch.bfloat16], device=0)
-    for name, t in zip(_build.FLASH_BWD_TENSORS, (q_off, k, v, o, do, *grads)):
-        for i, part in enumerate(("sb", "ss", "sh")):
-            setattr(call, f"{name}_{part}", t.stride(i))
-    torch.cuda.synchronize()
-    code = lib.repro_flash_attention_bwd(ctypes.addressof(call))
-    torch.cuda.synchronize()
-    try:
-        _build.check(code, "flash_attention backward")
-        raised = ""
-    except RuntimeError as exc:
-        raised = str(exc)
-    untouched = all(bool(torch.isnan(t).all()) for t in grads)
-    if code != -3 or not raised or not untouched:
-        fail(f"misaligned q, backward: launcher returned {code} (want -3, a refusal), "
-             f"raised {raised!r}, gradients untouched: {untouched}")
-    bwd_refusal = {"case": list(case), "dtype": "torch.bfloat16", "q_offset_bytes": 2,
-                   "code": code, "raised": raised}
-    del q, k, v, q_off, o, lse, do, grads, delta, dq_acc
+    bwd_refusal = []
+    for dtype in (bf16_, torch.float32):
+        q, k, v, q_off = misaligned_q(case, dtype)
+        o, lse = flash_mod.launch_forward(q, k, v, True, 0, 0.0, with_lse=True)
+        do = randn(q.shape, dtype)
+        grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+        delta, dq_acc = flash_mod._bwd_scratch(expected_variant(dtype, case[5], True), q)
+        call = _build.FlashBwdCall(
+            q=q_off.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
+            dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
+            dq_acc=dq_acc.data_ptr() if dq_acc is not None else None,
+            dq=grads[0].data_ptr(), dk=grads[1].data_ptr(),
+            dv=grads[2].data_ptr(), stream=torch.cuda.current_stream().cuda_stream,
+            B=case[0], Sq=case[1], Skv=case[2], H=case[3], KV=case[4], hd=case[5], causal=1,
+            window=0, softcap=0.0, dtype=_build.DTYPE_CODES[dtype], device=0)
+        for name, t in zip(_build.FLASH_BWD_TENSORS, (q_off, k, v, o, do, *grads)):
+            for i, part in enumerate(("sb", "ss", "sh")):
+                setattr(call, f"{name}_{part}", t.stride(i))
+        torch.cuda.synchronize()
+        code = lib.repro_flash_attention_bwd(ctypes.addressof(call))
+        torch.cuda.synchronize()
+        try:
+            _build.check(code, "flash_attention backward")
+            raised = ""
+        except RuntimeError as exc:
+            raised = str(exc)
+        untouched = all(bool(torch.isnan(t).all()) for t in grads)
+        if code != -3 or not raised or not untouched:
+            fail(f"misaligned q, backward, {dtype}: launcher returned {code} (want -3, a "
+                 f"refusal), raised {raised!r}, gradients untouched: {untouched}")
+        bwd_refusal.append({"case": list(case), "dtype": str(dtype),
+                            "q_offset_bytes": q.element_size(), "code": code, "raised": raised})
+        del q, k, v, q_off, o, lse, do, grads, delta, dq_acc
 
     rms_cases = []
     for dtype, tol in ((torch.float32, TOL_RMSNORM_FP32),
@@ -880,7 +896,7 @@ def run(args, torch) -> None:
         mask = None if same else window_mask(Sq_, Skv_, window_)
         library_ms = time_ms(sdpa(q, k, v, causal_, mask), 20)
         flops = 4.0 * hd_ * visible_pairs(Sq_, Skv_, causal_, window_) * B_ * H_
-        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_TENSOR_16BIT_FLOPS
+        peak = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_TENSOR_16BIT_FLOPS
         bounds = {"operations": flops / peak * 1e3,
                   "bytes": q.element_size() * (2 * q.numel() + k.numel() + v.numel())
                   / PEAK_BYTES_PER_S * 1e3}
@@ -1087,7 +1103,7 @@ def run(args, torch) -> None:
         flops = 10.0 * hd_ * pairs * B_ * H_
         nbytes = q.element_size() * (3 * q.numel() + 2 * (k.numel() + v.numel())
                                      + 2 * o.numel()) + 4.0 * lse.numel()
-        peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_TENSOR_16BIT_FLOPS
+        peak = PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_TENSOR_16BIT_FLOPS
         bounds = {"operations": flops / peak * 1e3,
                   "bytes": nbytes / PEAK_BYTES_PER_S * 1e3}
         del q, k, v, do, o, lse, leaves, out, dot, kw
@@ -1184,7 +1200,7 @@ def run(args, torch) -> None:
     path_timed["launch_train"] = [timed_flash(launch_case, launch_entry)]
     launch_bwd = {"path": "launch_train", **timed_backward(launch_case)}
     # launch_reduced's shape (the reduced float32 qwen2-7b, B_LAUNCH x S_LAUNCH): the
-    # scalar fp32 kernels, forward and backward
+    # fp32 (tf32x3) kernels, forward and backward
     rcfg = get_config("qwen2_7b").reduced()
     reduced_case = (B_LAUNCH, S_LAUNCH, S_LAUNCH, rcfg.n_heads, rcfg.n_kv_heads, rcfg.hd,
                     rcfg.causal, 0)
@@ -1193,6 +1209,51 @@ def run(args, torch) -> None:
     flash_cases.append(reduced_entry)
     reduced_fwd = timed_flash(reduced_case, reduced_entry, torch.float32)
     reduced_bwd = {"path": "launch_reduced", **timed_backward(reduced_case, torch.float32)}
+
+    def repeat_fp32(case) -> dict:
+        """Two float32 backward calls on the same inputs: dq, dk and dv bit for bit
+        (the tf32x3 passes sum in a fixed order, with no atomics)."""
+        q, k, v = flash_inputs(case, torch.float32)
+        do = randn(q.shape, torch.float32)
+        o, lse = flash_mod.launch_forward(q, k, v, case[6], case[7], 0.0, with_lse=True)
+        first = flash_mod.launch_backward(q, k, v, o, lse, do, case[6], case[7], 0.0)
+        again = flash_mod.launch_backward(q, k, v, o, lse, do, case[6], case[7], 0.0)
+        out = {"case": list(case), **{f"{n}_bit_exact": bool(torch.equal(a, b))
+                                      for n, a, b in zip(("dq", "dk", "dv"), first, again)}}
+        if not all(out[f"{n}_bit_exact"] for n in ("dq", "dk", "dv")):
+            fail(f"flash backward float32 repeat at {case}: {out}")
+        return out
+
+    # the fp32 kernels at launch_reduced's shape replayed from a CUDA graph as well
+    # (the device's time alone: at this size the events read the wrapper's host work
+    # too); the backward repeated there and at head_dim 80 and 256; both directions
+    # timed at qwen2-7b's training shape (no main path runs it in fp32), beside SDPA
+    # in fp32
+    q, k, v = flash_inputs(reduced_case, torch.float32)
+    do = randn(q.shape, torch.float32)
+    o, lse = flash_mod.launch_forward(q, k, v, rcfg.causal, 0, 0.0, with_lse=True)
+    reduced_fwd["graph_ms"] = graph_ms(
+        lambda: ops.flash_attention(q, k, v, causal=rcfg.causal), 50)
+    reduced_bwd["graph_ms"] = graph_ms(lambda: flash_mod.launch_backward(
+        q, k, v, o, lse, do, rcfg.causal, 0, 0.0), 50)
+    del q, k, v, do, o, lse
+    fp32_repeat = [repeat_fp32(case) for case in (
+        reduced_case, (B_BF16, S_BF16, S_BF16, 8, 2, 80, True, 0),
+        (B_BF16, S_BF16, S_BF16, 8, 2, 256, True, 0))]
+    long_fp32_entry = {"path": "none", **flash_case(train_case, torch.float32, TOL_FLASH_FP32)}
+    flash_cases.append(long_fp32_entry)
+    long_fp32_fwd = timed_flash(train_case, long_fp32_entry, torch.float32)
+    torch.cuda.empty_cache()
+    long_fp32_bwd = timed_backward(train_case, torch.float32)
+    # the mma.sync forward, at the 16-bit head_dims 32 and 16 it keeps (no main path
+    # runs it): 2 x 2048 tokens, 16 heads, beside SDPA
+    fwd_mma = {}
+    for hd_ in (32, 16):
+        mma_case = (B_TRAIN, 2048, 2048, 16, 16, hd_, True, 0)
+        mma_entry = flash_case(mma_case, bf16, TOL_16BIT)
+        flash_cases.append(mma_entry)
+        fwd_mma[f"head_dim_{hd_}"] = timed_flash(mma_case, mma_entry)
+    torch.cuda.empty_cache()
     # the pipeline phase's shapes (qwen2-7b's layers, microbatches of 1 x PIPE_SEQ),
     # bf16: the flash forward held, its backward held and timed, the RMSNorm forward
     # held and timed and its backward held
@@ -1350,23 +1411,39 @@ def run(args, torch) -> None:
                for key in ("max_abs_err", "max_err_share", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms", "tflops", "variant")},
             "launches_by_variant": {}, "head_dim_16": bwd_mma["head_dim_16"]},
-        # the scalar fp32 kernels, at launch_reduced's shape (its only main path)
-        "flash_attention_scalar": {
-            "name": "flash_attention_scalar", "route": "cuda",
+        # the mma.sync forward, at the 16-bit head_dims 32 and 16 it keeps; no main
+        # path launches it
+        "flash_attention_mma_sync": {
+            "name": "flash_attention_mma_sync", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:155",
+            "launches": 0, "dtype": "bfloat16",
+            "shape": {"q": [B_TRAIN, 2048, 16, 32], "kv": [B_TRAIN, 2048, 16, 32],
+                      "causal": True},
+            "tol": TOL_16BIT,
+            **{key: fwd_mma["head_dim_32"][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "tflops", "variant")},
+            "launches_by_variant": {}, "head_dim_16": fwd_mma["head_dim_16"]},
+        # the fp32 (3xTF32) kernels, at launch_reduced's shape (the main path that runs
+        # them at scale; the small phase and the bf16 check's float32 side run them
+        # too), with their CUDA-graph times, and at qwen2-7b's training shape
+        "flash_attention_tf32x3": {
+            "name": "flash_attention_tf32x3", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_fp32.cu",
             "replaces": "src/repro/kernels/flash_attention.py:155",
             "launches": 0, "dtype": "float32",
             "shape": {"q": [B_LAUNCH, S_LAUNCH, rcfg.n_heads, rcfg.hd],
                       "kv": [B_LAUNCH, S_LAUNCH, rcfg.n_kv_heads, rcfg.hd],
                       "causal": rcfg.causal},
             "tol": TOL_FLASH_FP32,
-            **{key: reduced_fwd[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "library_ms", "tflops",
-                                                 "variant")},
-            "launches_by_variant": {}},
-        "flash_attention_bwd_scalar": {
-            "name": "flash_attention_bwd_scalar", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            **{key: reduced_fwd[key] for key in ("max_abs_err", "ms", "graph_ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "library_ms",
+                                                 "tflops", "variant")},
+            "launches_by_variant": {}, "long_shape": long_fp32_fwd},
+        "flash_attention_bwd_tf32x3": {
+            "name": "flash_attention_bwd_tf32x3", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_fp32.cu",
             "replaces": "src/repro/kernels/flash_attention.py:102",
             "launches": 0, "dtype": "float32",
             "shape": {"q": [B_LAUNCH, S_LAUNCH, rcfg.n_heads, rcfg.hd],
@@ -1374,9 +1451,9 @@ def run(args, torch) -> None:
                       "causal": rcfg.causal},
             "tol": TOL_BWD_FP32, "err_is": "share of the largest magnitude (lse, dq, dk, dv)",
             **{key: reduced_bwd[key]
-               for key in ("max_abs_err", "max_err_share", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms", "tflops", "variant")},
-            "launches_by_variant": {}},
+               for key in ("max_abs_err", "max_err_share", "ms", "graph_ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms", "tflops", "variant")},
+            "launches_by_variant": {}, "repeat": fp32_repeat, "long_shape": long_fp32_bwd},
     }
     report["kernels_checked"] = {
         "phase": "kernels", "ok": not FAILURES,
@@ -1526,11 +1603,11 @@ def run(args, torch) -> None:
             gpu_state, m_gpu = steps["gpu"](gpu_state, {k: v.to(dev) for k, v in batch.items()})
             torch.cuda.synchronize()
             moved = ops.launch_counts()
-            if moved != per_step or ops.flash_bwd_launches_by_variant()["scalar"] != \
+            if moved != per_step or ops.flash_bwd_launches_by_variant()["tf32x3"] != \
                     per_step["flash_attention_bwd"]:
                 fail(f"small {arch} train step {i}: launched {moved} "
                      f"(backward by variant {ops.flash_bwd_launches_by_variant()}), "
-                     f"expected {per_step}, every backward on the scalar kernel")
+                     f"expected {per_step}, every backward on the tf32x3 kernels")
             for name, m in (("cpu", m_cpu), ("gpu", m_gpu)):
                 train_metrics[name].append({k: float(v) for k, v in m.items()})
         for key in ("loss", "grad_norm"):
@@ -2555,7 +2632,7 @@ def run(args, torch) -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype", "tol")
     keys += ("variant", "launches_by_path", "launches_by_variant", "head_dim_256",
-             "head_dim_80", "head_dim_16")
+             "head_dim_80", "head_dim_16", "graph_ms", "long_shape")
     kernels_line = {"kernels": [{key: kern[key] for key in keys if key in kern}
                                 for kern in kernels.values()]}
     final = {"ok": True, "device": {"platform": "gpu",

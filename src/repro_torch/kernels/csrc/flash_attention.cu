@@ -14,7 +14,10 @@
 // fallback): bf16/fp16 at head_dim 64, 80, 128 and 256 -- the serving and training
 // paths' shapes, zamba2's shared attention at 80 among them -- take the TMA + wgmma
 // kernel of flash_attention_sm90.cu; bf16/fp16 at head_dim 16 and 32 the mma.sync
-// kernel of this file; float32 the scalar kernel of this file.
+// kernel of this file; float32, at every head_dim, the 3xTF32 kernel of
+// flash_attention_fp32.cu (TMA tiles in a two-stage ring, mma.sync.m16n8k8 on TF32
+// with each operand split into a high and a low part, so the tensor cores give
+// float32's accuracy; bound by operations at 165 TFLOP/s of float32-accurate work).
 //
 // Bound on this card: operations.  At the prefill shape (S = 2048, hd = 128) the
 // kernel does ~S*hd/2 flops per byte of q/k/v/o it must move, well above the ~295
@@ -38,9 +41,8 @@
 //   * GQA is pointer arithmetic: head h reads kv head h / (H / KV) through the
 //     strides it is given; K/V are never repeated or transposed in memory.
 // It is latency-bound inside the warp (PERF.md), which is why the serving
-// shapes moved to wgmma.  fp32 inputs take a scalar-FMA kernel (a
-// warp per query row); it exists for the tight-tolerance comparison with the plain
-// version, not for speed.
+// shapes moved to wgmma; no main path runs it (every 16-bit head_dim a model has
+// is a wgmma one).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,8 +65,6 @@ using flash::ldmatrix_x4_trans;
 using flash::load_tile_async;
 using flash::cp_async_commit;
 using flash::cp_async_wait;
-using flash::warp_max;
-using flash::warp_sum;
 
 // ---------------------------------------------------------------------------
 // 16-bit inputs: tensor cores through mma.sync.m16n8k16 (helpers in flash_mma.cuh)
@@ -253,132 +253,25 @@ int dispatch_mma(const Params& p, int hd, cudaStream_t st) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32 inputs: scalar FMAs, a warp per query row
-// ---------------------------------------------------------------------------
-
-constexpr int kScalarRows = 8;  // query rows (warps) per block
-constexpr int kScalarKeys = 32; // keys per tile: one per lane
-
-template <int HD>
-__global__ void __launch_bounds__(kScalarRows * 32) flash_fwd_scalar_kernel(const Params p) {
-  constexpr int NT = kScalarRows * 32;
-  constexpr int LDK = HD + 1;            // lane j reads row j: stride HD+1 avoids bank conflicts
-  constexpr int DPL = (HD + 31) / 32;    // output dims owned by each lane
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // [kScalarKeys][LDK]
-  float* sQ = sK + kScalarKeys * LDK;              // [kScalarRows][HD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int q0 = qt * kScalarRows;
-  const int row = q0 + warp;
-  const int qpos = row + (p.Skv - p.Sq);
-
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  for (int i = tid; i < kScalarRows * HD; i += NT) {
-    const int r = i / HD, c = i % HD;
-    sQ[i] = (q0 + r < p.Sq) ? qg[(long long)(q0 + r) * p.q_ss + c] : 0.f;
-  }
-
-  int kv_lo, kv_hi;
-  kv_range(p, q0, kScalarRows, kScalarKeys, kv_lo, kv_hi);
-
-  float acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  float m = kNegInf, l = 0.f;
-
-  for (int n0 = kv_lo; n0 < kv_hi; n0 += kScalarKeys) {
-    __syncthreads();
-    for (int i = tid; i < kScalarKeys * HD; i += NT) {
-      const int r = i / HD, c = i % HD;
-      sK[r * LDK + c] = (n0 + r < p.Skv) ? kg[(long long)(n0 + r) * p.k_ss + c] : 0.f;
-    }
-    __syncthreads();
-
-    float raw = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) raw += sQ[warp * HD + d] * sK[lane * LDK + d];
-    const float sc = masked_score(p, raw, qpos, n0 + lane);
-
-    const float m_new = fmaxf(m, warp_max(sc));
-    const float alpha = expf(m - m_new);
-    const float pj = sc <= 0.5f * kNegInf ? 0.f : expf(sc - m_new);
-    l = l * alpha + warp_sum(pj);
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-
-    const int nkeys = min(kScalarKeys, p.Skv - n0);  // same for the whole block
-    for (int j = 0; j < nkeys; ++j) {
-      const float pb = __shfl_sync(0xffffffffu, pj, j);
-      const float* vrow = vg + (long long)(n0 + j) * p.v_ss;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < HD) acc[i] += pb * vrow[d];
-      }
-    }
-  }
-
-  if (row < p.Sq) {
-    const float inv = 1.0f / fmaxf(l, 1e-30f);
-    if (p.lse != nullptr && lane == 0)
-      p.lse[((long long)b * p.H + h) * p.Sq + row] = m + logf(fmaxf(l, 1e-30f));
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) og[(long long)row * p.o_ss + d] = acc[i] * inv;
-    }
-  }
-}
-
-template <int HD>
-cudaError_t launch_scalar(const Params& p, cudaStream_t st) {
-  constexpr int smem = (kScalarKeys * (HD + 1) + kScalarRows * HD) * (int)sizeof(float);
-  static_assert(smem <= 48 * 1024, "scalar kernel must fit the default shared memory limit");
-  dim3 grid((p.Sq + kScalarRows - 1) / kScalarRows, p.H, p.B);
-  flash_fwd_scalar_kernel<HD><<<grid, kScalarRows * 32, smem, st>>>(p);
-  return cudaGetLastError();
-}
-
-int dispatch_scalar(const Params& p, int hd, cudaStream_t st) {
-  switch (hd) {
-    case 16: return (int)launch_scalar<16>(p, st);
-    case 32: return (int)launch_scalar<32>(p, st);
-    case 64: return (int)launch_scalar<64>(p, st);
-    case 80: return (int)launch_scalar<80>(p, st);
-    case 128: return (int)launch_scalar<128>(p, st);
-    case 256: return (int)launch_scalar<256>(p, st);
-    default: return -1;
-  }
-}
-
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and o share one type).
-// The kernel a call of that type and head_dim launches: 0 scalar, 1 mma.sync,
-// 2 TMA + wgmma (flash_attention_sm90.cu); -1 if none is compiled in.
+// The kernel a call of that type and head_dim launches: 0 tf32x3
+// (flash_attention_fp32.cu), 1 mma.sync, 2 TMA + wgmma (flash_attention_sm90.cu);
+// -1 if none is compiled in.
 extern "C" int repro_flash_attention_variant(int hd, int dtype) {
   return flash::variant_for(hd, dtype, false);
 }
 
-// Strides are in elements; the head_dim stride must be 1 and, for 16-bit types,
-// every row must start on a 16-byte boundary (the Python wrapper checks both).
+// Strides are in elements; the head_dim stride must be 1 and every row must start
+// on a 16-byte boundary (the Python wrapper checks both).
 // `lse`, when not null, receives each query row's log-sum-exp of its scaled (and
 // capped) visible scores, natural log, as a contiguous (B, H, Sq) float32 tensor:
 // what the backward (flash_attention_bwd.cu) recomputes the probabilities from.
 // Serving passes null and writes nothing.
 // Launches on `stream` of CUDA device `device`.  Returns 0, a cudaError_t (> 0)
 // from the launch, -1 for a head_dim that is not compiled in, -2 for an unknown
-// type, -3 / -4 when the TMA kernel's tensor maps cannot be made (see
+// type, -3 / -4 when the TMA kernels' tensor maps cannot be made (see
 // flash_attention.cuh).  No variant ever stands in for another.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Skv,
@@ -402,7 +295,7 @@ extern "C" int repro_flash_attention_fwd(
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (flash::variant_for(hd, dtype, false)) {
-    case flash::kScalar: return dispatch_scalar(p, hd, st);
+    case flash::kTf32x3: return flash::launch_fwd_tf32x3(p, hd, st);
     case flash::kMmaSync:
       return dtype == 1 ? dispatch_mma<__nv_bfloat16>(p, hd, st) : dispatch_mma<__half>(p, hd, st);
     case flash::kSm90Wgmma: return flash::launch_sm90(p, hd, dtype, st);

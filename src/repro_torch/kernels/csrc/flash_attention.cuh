@@ -1,13 +1,13 @@
 // Shared between the fused attention kernels: the forward's (flash_attention.cu:
-// mma.sync and scalar; flash_attention_sm90.cu: TMA + wgmma) and the backward's
-// (flash_attention_bwd.cu: mma.sync and scalar; flash_attention_bwd_sm90.cu: TMA +
-// wgmma).
+// mma.sync; flash_attention_sm90.cu: TMA + wgmma), the backward's
+// (flash_attention_bwd.cu: D and mma.sync; flash_attention_bwd_sm90.cu: TMA + wgmma)
+// and the float32 forward and backward (flash_attention_fp32.cu: 3xTF32).
 //
 // They replace the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel,
 // launched by _flash_fwd_kernel_call, and the VJP _flash_vjp_bwd takes of
 // mha_reference) and compute its contract, stated in flash_attention.cu.  This
 // header holds what they must agree on: the calls' parameters, the kv range a query
-// tile can see and the query range a key tile can see, the scalar score rule and the
+// tile can see and the query range a key tile can see, the score rule and the
 // choice of kernel by type and head_dim, forward and backward.
 //
 // Bound on this card: operations (see flash_attention.cu); nothing here moves data.
@@ -38,7 +38,7 @@ struct Params {
 
 // One backward call: the forward's inputs, its output o and per-row lse, dO, and the
 // gradients.  delta is float32 scratch: (B, H, Sq) D = rowsum(dO o O) for the
-// scalar and mma.sync kernels; for the wgmma kernel D then lse * log2(e), each
+// tf32x3 and mma.sync kernels; for the wgmma kernel D then lse * log2(e), each
 // (B, H, sq_pad(Sq)), rows past Sq padded (D 0, lse +inf), and dq_acc its float32
 // dq accumulator of B * H * sq_pad(Sq) * hd floats, laid out as that kernel states
 // (unused by the others, and by the wgmma kernel at kDqPassHeadDim, whose dq pass
@@ -72,7 +72,7 @@ constexpr int kDqPassHeadDim = 256;
 
 // Kernel variants, as repro_flash_attention_variant and
 // repro_flash_attention_bwd_variant report them.
-enum Variant { kScalar = 0, kMmaSync = 1, kSm90Wgmma = 2 };
+enum Variant { kTf32x3 = 0, kMmaSync = 1, kSm90Wgmma = 2 };
 
 // The head_dims compiled in, forward and backward, and the 16-bit ones the TMA +
 // wgmma kernels take: the forward and the backward at 64, 80, 128 and 256 (16 and 32
@@ -94,10 +94,11 @@ inline bool one_of(const int (&set)[N], int hd) {
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The split by shape: 16-bit
 // inputs at the wgmma head_dims above take the TMA + wgmma kernel; the other 16-bit
-// head_dims the mma.sync kernel; float32 the scalar one.  -1: not compiled in.
+// head_dims the mma.sync kernel; float32, at every head_dim, the 3xTF32 kernels
+// (flash_attention_fp32.cu).  -1: not compiled in.
 inline int variant_for(int hd, int dtype, bool backward) {
   if (!(backward ? one_of(kBwdHeadDims, hd) : one_of(kHeadDims, hd))) return -1;
-  if (dtype == 0) return kScalar;
+  if (dtype == 0) return kTf32x3;
   if (dtype != 1 && dtype != 2) return -1;
   const bool wgmma = backward ? one_of(kSm90BwdHeadDims, hd) : one_of(kSm90HeadDims, hd);
   return wgmma ? kSm90Wgmma : kMmaSync;
@@ -130,13 +131,53 @@ __device__ __forceinline__ void q_range(const P& p, int n0, int bn, int bm, int&
   if (p.window > 0) hi = min(hi, n0 + bn - 1 + p.window - offset);
 }
 
-__device__ __forceinline__ float masked_score(const Params& p, float raw, int qpos, int kpos) {
+// The scaled (and capped) score, before the mask.
+__device__ __forceinline__ float scaled_score(const Params& p, float raw) {
   float x = raw * p.scale;
   if (p.softcap != 0.f) x = tanhf(x / p.softcap) * p.softcap;
+  return x;
+}
+
+// Whether every pair of query rows [r0, r0 + rows) and keys [k0, k0 + keys) is inside
+// both tensors and the masks: the first row sees the last key (causal) and the last
+// row the first key (window).  (Any parameter block: the backward's too.)
+template <typename P>
+__device__ __forceinline__ bool all_visible(const P& p, int r0, int rows, int k0, int keys) {
+  const int offset = p.Skv - p.Sq;
+  if (r0 + rows > p.Sq || k0 + keys > p.Skv) return false;
+  if (p.causal && r0 + offset < k0 + keys - 1) return false;
+  return p.window <= 0 || r0 + rows - 1 + offset - k0 < p.window;
+}
+
+__device__ __forceinline__ float masked_score(const Params& p, float raw, int qpos, int kpos) {
+  const float x = scaled_score(p, raw);
   bool ok = kpos < p.Skv;
   if (p.causal) ok = ok && (qpos >= kpos);
   if (p.window > 0) ok = ok && (qpos - kpos < p.window);
   return ok ? x : kNegInf;
+}
+
+// Whether the pair (query row, key) is visible: inside both tensors and the masks.
+__device__ __forceinline__ bool visible(const BwdParams& p, int row, int key) {
+  const int qpos = row + (p.Skv - p.Sq);
+  bool ok = row < p.Sq && key < p.Skv;
+  if (p.causal) ok = ok && qpos >= key;
+  if (p.window > 0) ok = ok && qpos - key < p.window;
+  return ok;
+}
+
+// p and ds of one pair from its raw score, the row's lse and D, and dp.
+__device__ __forceinline__ void prob_and_grad(const BwdParams& p, bool ok, float raw,
+                                              float lse, float dlt, float dp, float& pe,
+                                              float& ds) {
+  float x = raw * p.scale, capd = 1.f;
+  if (p.softcap != 0.f) {
+    const float th = tanhf(x / p.softcap);
+    x = th * p.softcap;
+    capd = 1.f - th * th;
+  }
+  pe = ok ? __expf(x - lse) : 0.f;
+  ds = pe * (dp - dlt) * capd;
 }
 
 // The TMA + wgmma kernel's launcher (flash_attention_sm90.cu).  Returns 0, a
@@ -147,6 +188,12 @@ int launch_sm90(const Params& p, int hd, int dtype, cudaStream_t st);
 // The TMA + wgmma backward's launcher (flash_attention_bwd_sm90.cu): D and the
 // padded lse, dk/dv with dq accumulated in dq_acc, then dq.  The same codes.
 int launch_bwd_sm90(const BwdParams& p, int hd, int dtype, cudaStream_t st);
+
+// The float32 kernels' launchers (flash_attention_fp32.cu): the forward, and the
+// backward's two passes (dq with D = rowsum(dO o O) into delta, then dk/dv).  The
+// same codes as the wgmma launchers; a refusal launches nothing.
+int launch_fwd_tf32x3(const Params& p, int hd, cudaStream_t st);
+int launch_bwd_tf32x3(const BwdParams& p, int hd, cudaStream_t st);
 
 // Makes `dev` the current device for the lifetime of the guard when it is not
 // already (the runtime launches on the current device).

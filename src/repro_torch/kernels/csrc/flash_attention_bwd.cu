@@ -36,17 +36,19 @@
 //     key range a query tile can see), heavy tiles are scheduled first, ragged tails
 //     are zero-filled and masked.
 // Pass A and pass B each recompute s and dp, so the design spends 14 * hd flops per
-// pair instead of 10.  fp32 inputs take scalar kernels of the same two-pass shape (a
-// warp per key or per query row, a lane per pair), for the tight comparison with the
-// plain version, not for speed.
+// pair instead of 10.  float32 inputs take passes of the same two-pass shape on the
+// tensor cores in 3xTF32 (flash_attention_fp32.cu: TMA tiles in a two-stage ring,
+// each operand split into TF32 high and low parts, D computed by its dq pass; bound
+// by operations at 165 TFLOP/s of float32-accurate work).
 //
 // The C entry point below picks the kernels by type and head_dim with the backward's
 // rule (flash::variant_for): 16-bit inputs at head_dim 64, 80, 128 and 256 -- the
 // training paths' shapes -- take the one-pass TMA + wgmma kernel of
 // flash_attention_bwd_sm90.cu (dq summed by TMA reduce-adds); 16-bit head_dim 16 and
 // 32 the mma.sync passes of this file (tiles of 64 keys and 64 query rows, within the
-// default 48 KB of shared memory); float32 the scalar passes.  A split by shape, not a
-// fallback.
+// default 48 KB of shared memory); float32, at every head_dim, the 3xTF32 passes of
+// flash_attention_fp32.cu (launched by its launcher, after its tensor maps are
+// made).  A split by shape, not a fallback.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -69,7 +71,9 @@ using flash::load_q_fragment;
 using flash::load_tile_async;
 using flash::Mma;
 using flash::pack_a;
+using flash::prob_and_grad;
 using flash::q_range;
+using flash::visible;
 using flash::warp_sum;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -78,29 +82,6 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v
   return __bfloat162float(v);
 }
 template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
-
-// Whether the pair (query row, key) is visible: inside both tensors and the masks.
-__device__ __forceinline__ bool visible(const BwdParams& p, int row, int key) {
-  const int qpos = row + (p.Skv - p.Sq);
-  bool ok = row < p.Sq && key < p.Skv;
-  if (p.causal) ok = ok && qpos >= key;
-  if (p.window > 0) ok = ok && qpos - key < p.window;
-  return ok;
-}
-
-// p and ds of one pair from its raw score, the row's lse and D, and dp.
-__device__ __forceinline__ void prob_and_grad(const BwdParams& p, bool ok, float raw,
-                                              float lse, float dlt, float dp, float& pe,
-                                              float& ds) {
-  float x = raw * p.scale, capd = 1.f;
-  if (p.softcap != 0.f) {
-    const float th = tanhf(x / p.softcap);
-    x = th * p.softcap;
-    capd = 1.f - th * th;
-  }
-  pe = ok ? __expf(x - lse) : 0.f;
-  ds = pe * (dp - dlt) * capd;
-}
 
 // ---------------------------------------------------------------------------
 // D = rowsum(dO o O): a warp per (batch, head, row)
@@ -434,209 +415,6 @@ int dispatch_mma(const BwdParams& p, int hd, cudaStream_t st) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32 inputs: scalar FMAs
-// ---------------------------------------------------------------------------
-
-constexpr int kScalarWarps = 8;  // keys (pass A) or query rows (pass B) per block
-constexpr int kScalarLanes = 32; // query rows (pass A) or keys (pass B) per step
-
-// Pass A: a warp per key, a lane per query row of the current 32-row step.
-template <int HD>
-__global__ void __launch_bounds__(kScalarWarps * 32) flash_bwd_dkdv_scalar_kernel(const BwdParams p) {
-  constexpr int NT = kScalarWarps * 32;
-  constexpr int LDQ = HD + 1;          // lane j reads row j: stride HD+1 avoids bank conflicts
-  constexpr int DPL = (HD + 31) / 32;  // output dims owned by each lane
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [32][LDQ]
-  float* sdO = sQ + kScalarLanes * LDQ;            // [32][LDQ]
-  float* sK = sdO + kScalarLanes * LDQ;            // [8][HD]
-  float* sV = sK + kScalarWarps * HD;              // [8][HD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int n0 = blockIdx.x * kScalarWarps;
-  const int key = n0 + warp;
-  const int G = p.H / p.KV;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  for (int i = tid; i < kScalarWarps * HD; i += NT) {
-    const int r = i / HD, c = i % HD;
-    const bool ok = n0 + r < p.Skv;
-    sK[i] = ok ? kg[(long long)(n0 + r) * p.k_ss + c] : 0.f;
-    sV[i] = ok ? vg[(long long)(n0 + r) * p.v_ss + c] : 0.f;
-  }
-  int lo, hi;
-  q_range(p, n0, kScalarWarps, kScalarLanes, lo, hi);
-
-  float ak[DPL], av[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) ak[i] = av[i] = 0.f;
-
-  for (int gq = 0; gq < G; ++gq) {
-    const int h = kvh * G + gq;
-    const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* dg = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    const long long row0 = ((long long)b * p.H + h) * p.Sq;
-    for (int m0 = lo; m0 < hi; m0 += kScalarLanes) {
-      __syncthreads();
-      for (int i = tid; i < kScalarLanes * HD; i += NT) {
-        const int r = i / HD, c = i % HD;
-        const bool ok = m0 + r < p.Sq;
-        sQ[r * LDQ + c] = ok ? qg[(long long)(m0 + r) * p.q_ss + c] : 0.f;
-        sdO[r * LDQ + c] = ok ? dg[(long long)(m0 + r) * p.do_ss + c] : 0.f;
-      }
-      __syncthreads();
-      const int row = m0 + lane;
-      float raw = 0.f, dp = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        raw += sQ[lane * LDQ + d] * sK[warp * HD + d];
-        dp += sdO[lane * LDQ + d] * sV[warp * HD + d];
-      }
-      const bool ok = visible(p, row, key);
-      float pe, ds;
-      prob_and_grad(p, ok, raw, ok ? p.lse[row0 + row] : 0.f, ok ? p.delta[row0 + row] : 0.f,
-                    dp, pe, ds);
-      const int nrows = min(kScalarLanes, p.Sq - m0);  // same for the whole block
-      for (int j = 0; j < nrows; ++j) {
-        const float pb = __shfl_sync(0xffffffffu, pe, j);
-        const float sb = __shfl_sync(0xffffffffu, ds, j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + 32 * i;
-          if (d < HD) {
-            av[i] += pb * sdO[j * LDQ + d];
-            ak[i] += sb * sQ[j * LDQ + d];
-          }
-        }
-      }
-    }
-  }
-  if (key < p.Skv) {
-    float* dkr = static_cast<float*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh + (long long)key * p.dk_ss;
-    float* dvr = static_cast<float*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh + (long long)key * p.dv_ss;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) {
-        dkr[d] = ak[i] * p.scale;
-        dvr[d] = av[i];
-      }
-    }
-  }
-}
-
-// Pass B: a warp per query row, a lane per key of the current 32-key step.
-template <int HD>
-__global__ void __launch_bounds__(kScalarWarps * 32) flash_bwd_dq_scalar_kernel(const BwdParams p) {
-  constexpr int NT = kScalarWarps * 32;
-  constexpr int LDK = HD + 1;
-  constexpr int DPL = (HD + 31) / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);  // [32][LDK]
-  float* sV = sK + kScalarLanes * LDK;             // [32][LDK]
-  float* sQ = sV + kScalarLanes * LDK;             // [8][HD]
-  float* sdO = sQ + kScalarWarps * HD;             // [8][HD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int q0 = qt * kScalarWarps;
-  const int row = q0 + warp;
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* dg = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  for (int i = tid; i < kScalarWarps * HD; i += NT) {
-    const int r = i / HD, c = i % HD;
-    const bool ok = q0 + r < p.Sq;
-    sQ[i] = ok ? qg[(long long)(q0 + r) * p.q_ss + c] : 0.f;
-    sdO[i] = ok ? dg[(long long)(q0 + r) * p.do_ss + c] : 0.f;
-  }
-  const long long row0 = ((long long)b * p.H + h) * p.Sq;
-  const float lse = row < p.Sq ? p.lse[row0 + row] : 0.f;
-  const float dlt = row < p.Sq ? p.delta[row0 + row] : 0.f;
-  int kv_lo, kv_hi;
-  kv_range(p, q0, kScalarWarps, kScalarLanes, kv_lo, kv_hi);
-
-  float acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-  for (int n0 = kv_lo; n0 < kv_hi; n0 += kScalarLanes) {
-    __syncthreads();
-    for (int i = tid; i < kScalarLanes * HD; i += NT) {
-      const int r = i / HD, c = i % HD;
-      const bool ok = n0 + r < p.Skv;
-      sK[r * LDK + c] = ok ? kg[(long long)(n0 + r) * p.k_ss + c] : 0.f;
-      sV[r * LDK + c] = ok ? vg[(long long)(n0 + r) * p.v_ss + c] : 0.f;
-    }
-    __syncthreads();
-    float raw = 0.f, dp = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      raw += sQ[warp * HD + d] * sK[lane * LDK + d];
-      dp += sdO[warp * HD + d] * sV[lane * LDK + d];
-    }
-    float pe, ds;
-    prob_and_grad(p, visible(p, row, n0 + lane), raw, lse, dlt, dp, pe, ds);
-    const int nkeys = min(kScalarLanes, p.Skv - n0);  // same for the whole block
-    for (int j = 0; j < nkeys; ++j) {
-      const float sb = __shfl_sync(0xffffffffu, ds, j);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        if (d < HD) acc[i] += sb * sK[j * LDK + d];
-      }
-    }
-  }
-  if (row < p.Sq) {
-    float* dqr = static_cast<float*>(p.dq) + b * p.dq_sb + h * p.dq_sh + (long long)row * p.dq_ss;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < HD) dqr[d] = acc[i] * p.scale;
-    }
-  }
-}
-
-template <int HD>
-int launch_scalar(const BwdParams& p, cudaStream_t st) {
-  constexpr int smem = (2 * kScalarLanes * (HD + 1) + 2 * kScalarWarps * HD) * (int)sizeof(float);
-  {
-    auto kern = flash_bwd_dkdv_scalar_kernel<HD>;
-    static bool raised = false;
-    cudaError_t e = flash::allow_smem(kern, smem, raised);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((p.Skv + kScalarWarps - 1) / kScalarWarps, p.KV, p.B);
-    kern<<<grid, kScalarWarps * 32, smem, st>>>(p);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  {
-    auto kern = flash_bwd_dq_scalar_kernel<HD>;
-    static bool raised = false;
-    cudaError_t e = flash::allow_smem(kern, smem, raised);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((p.Sq + kScalarWarps - 1) / kScalarWarps, p.H, p.B);
-    kern<<<grid, kScalarWarps * 32, smem, st>>>(p);
-    return (int)cudaGetLastError();
-  }
-}
-
-int dispatch_scalar(const BwdParams& p, int hd, cudaStream_t st) {
-  switch (hd) {
-    case 16: return launch_scalar<16>(p, st);
-    case 32: return launch_scalar<32>(p, st);
-    case 64: return launch_scalar<64>(p, st);
-    case 80: return launch_scalar<80>(p, st);
-    case 128: return launch_scalar<128>(p, st);
-    case 256: return launch_scalar<256>(p, st);
-    default: return -1;
-  }
-}
-
 template <typename T>
 cudaError_t launch_delta(const BwdParams& p, int hd, cudaStream_t st) {
   const long long rows = (long long)p.B * p.H * p.Sq;
@@ -646,6 +424,7 @@ cudaError_t launch_delta(const BwdParams& p, int hd, cudaStream_t st) {
 }
 
 }  // namespace
+
 
 // One backward call's arguments, passed as one block (there are too many for a plain
 // argument list).  dtype codes: 0 = float32, 1 = bfloat16, 2 = float16, shared by
@@ -704,7 +483,7 @@ struct FlashBwdCall {
   int device;
 };
 
-// The kernels a backward call of that type and head_dim launches: 0 scalar,
+// The kernels a backward call of that type and head_dim launches: 0 tf32x3,
 // 1 mma.sync, 2 TMA + wgmma (the backward's rule); -1 if none is compiled in.
 extern "C" int repro_flash_attention_bwd_variant(int hd, int dtype) {
   return flash::variant_for(hd, dtype, true);
@@ -713,8 +492,8 @@ extern "C" int repro_flash_attention_bwd_variant(int hd, int dtype) {
 // Launches the backward's kernels on `stream` of CUDA device `device`: D, pass A and
 // pass B, or the wgmma kernel's prep, one pass and dq cast.  Returns 0, a cudaError_t
 // (> 0) from a launch, -1 for a head_dim that is not compiled in, -2 for an unknown
-// type, -3 / -4 when the wgmma kernel's tensor maps cannot be made.  No variant ever
-// stands in for another.
+// type, -3 / -4 when the TMA kernels' tensor maps cannot be made (nothing launched).
+// No variant ever stands in for another.
 extern "C" int repro_flash_attention_bwd(const FlashBwdCall* c) {
   if (c->B <= 0 || c->H <= 0 || c->Sq <= 0 || c->Skv <= 0) return 0;
   if (repro_flash_attention_bwd_variant(c->hd, c->dtype) < 0)
@@ -740,18 +519,14 @@ extern "C" int repro_flash_attention_bwd(const FlashBwdCall* c) {
   flash::DeviceGuard guard(c->device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);
-  if (flash::variant_for(c->hd, c->dtype, true) == flash::kSm90Wgmma)
-    return flash::launch_bwd_sm90(p, c->hd, c->dtype, st);
+  const int kind = flash::variant_for(c->hd, c->dtype, true);
+  if (kind == flash::kSm90Wgmma) return flash::launch_bwd_sm90(p, c->hd, c->dtype, st);
+  if (kind == flash::kTf32x3) return flash::launch_bwd_tf32x3(p, c->hd, st);
   cudaError_t e;
-  switch (c->dtype) {
-    case 0: e = launch_delta<float>(p, c->hd, st); break;
-    case 1: e = launch_delta<__nv_bfloat16>(p, c->hd, st); break;
-    default: e = launch_delta<__half>(p, c->hd, st); break;
+  if (c->dtype == 1) {
+    e = launch_delta<__nv_bfloat16>(p, c->hd, st);
+    return e != cudaSuccess ? (int)e : dispatch_mma<__nv_bfloat16>(p, c->hd, st);
   }
-  if (e != cudaSuccess) return (int)e;
-  switch (c->dtype) {
-    case 0: return dispatch_scalar(p, c->hd, st);
-    case 1: return dispatch_mma<__nv_bfloat16>(p, c->hd, st);
-    default: return dispatch_mma<__half>(p, c->hd, st);
-  }
+  e = launch_delta<__half>(p, c->hd, st);
+  return e != cudaSuccess ? (int)e : dispatch_mma<__half>(p, c->hd, st);
 }

@@ -318,20 +318,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over (hd, seq, heads, batch) of a 16-bit tensor with element strides
-// (ss, sh, sb), boxes of `cols` columns x `rows` rows of one head: 64 columns under
-// the 128-byte swizzle, or 16 (head_dim 80's last box) under the 32-byte one.  Rows
-// past `seq` read as zeros.
+// A 4-D map over (hd, seq, heads, batch) of a tensor of `elem` bytes an element
+// (16-bit unless told otherwise) with element strides (ss, sh, sb), boxes of `cols`
+// columns x `rows` rows of one head: 64 16-bit columns under the 128-byte swizzle, or
+// 16 (head_dim 80's last box) under the 32-byte one; in float32 (flash_attention_fp32.cu)
+// 32 columns under the 128-byte swizzle or 16 under the 64-byte one.  Rows past `seq`
+// read as zeros.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int hd,
             int seq, int heads, int batch, long long ss, long long sh, long long sb, int rows,
-            int cols = kBoxCols, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+            int cols = kBoxCols, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+            int elem = 2) {
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)seq, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   // a dimension of extent 1 is never stepped over: give it a stride TMA accepts
-  constexpr long long kAny = kBoxCols;  // 128 bytes
-  const long long st[3] = {seq > 1 ? ss : kAny, heads > 1 ? sh : kAny, batch > 1 ? sb : kAny};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[0] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[2] * 2};
+  const long long any = 128 / elem;  // 128 bytes
+  const long long st[3] = {seq > 1 ? ss : any, heads > 1 ? sh : any, batch > 1 ? sb : any};
+  const cuuint64_t strides[3] = {(cuuint64_t)(st[0] * elem), (cuuint64_t)(st[1] * elem),
+                                 (cuuint64_t)(st[2] * elem)};
   const cuuint32_t box[4] = {(cuuint32_t)cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, estr,

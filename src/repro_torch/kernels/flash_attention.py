@@ -6,14 +6,17 @@ version.  A call that needs gradients goes through :class:`FlashAttention`, a
 with the per-row log-sum-exp ``lse`` written beside the output, and its backward
 launches the backward kernels (``csrc/flash_attention_bwd_sm90.cu``: D, then one
 pass for dk, dv and dq, at head_dim 256 one for dk and dv and one for dq; or
-``csrc/flash_attention_bwd.cu``: D, then dk/dv, then dq); on the CPU both are the
+``csrc/flash_attention_bwd.cu``: D, then dk/dv, then dq; or, in float32,
+``csrc/flash_attention_fp32.cu``: dq with D, then dk/dv); on the CPU both are the
 plain versions of ``ref``.  A call without
 gradients (serving) launches the forward kernel alone and writes no ``lse``.
 
 Which kernel a CUDA call launches is the library's own rule (``variant``,
 ``bwd_variant``): 16-bit inputs take the TMA + wgmma kernels at head_dim 64, 80,
-128 and 256, forward and backward, the mma.sync kernels at 16 and 32; float32 the
-scalar kernels.  A head_dim compiled into neither direction raises.  A variant that cannot run (a tensor map that cannot be encoded, a refused
+128 and 256, forward and backward, the mma.sync kernels at 16 and 32; float32, at
+every head_dim, the 3xTF32 kernels (``tf32x3``: the tensor cores with each operand
+split into TF32 high and low parts, float32's accuracy).  A head_dim compiled into
+neither direction raises.  A variant that cannot run (a tensor map that cannot be encoded, a refused
 launch) raises; no other variant stands in for it.
 """
 
@@ -32,7 +35,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_reference,
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: the C interface's codes 0, 1, 2, forward and backward
-VARIANTS = ("scalar", "mma_sync", "sm90_wgmma")
+VARIANTS = ("tf32x3", "mma_sync", "sm90_wgmma")
 #: the wgmma backward pads its per-row scratch to a multiple of this many query rows
 #: (``kSqPad`` of ``csrc/flash_attention.cuh``)
 BWD_SQ_PAD = 128
@@ -86,10 +89,12 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> str:
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
+    """Every kernel loads whole rows by 16-byte copies (TMA tiles, bulk copies,
+    cp.async): the head_dim stride must be 1 and each row start on a 16-byte
+    boundary, in every element type."""
     if t.stride(-1) != 1:
         raise ValueError(f"flash_attention: {name}'s head_dim stride must be 1")
-    if t.element_size() == 2 and (
-            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1])):
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:-1]):
         raise ValueError(f"flash_attention: {name}'s rows must start on "
                          "16-byte boundaries")
 

@@ -35,13 +35,13 @@ def launch_counts() -> dict[str, int]:
 
 
 def flash_launches_by_variant() -> dict[str, int]:
-    """Flash-attention forward launches per kernel variant (``scalar``,
+    """Flash-attention forward launches per kernel variant (``tf32x3``,
     ``mma_sync``, ``sm90_wgmma``) since the last :func:`reset_launch_counts`."""
     return dict(_flash_mod.launches_by_variant)
 
 
 def flash_bwd_launches_by_variant() -> dict[str, int]:
-    """Flash-attention backward launches per variant (``scalar``, ``mma_sync``,
+    """Flash-attention backward launches per variant (``tf32x3``, ``mma_sync``,
     ``sm90_wgmma``) since the last :func:`reset_launch_counts`."""
     return dict(_flash_mod.bwd_launches_by_variant)
 

@@ -185,9 +185,9 @@ def test_ops_on_cpu_take_plain_versions_and_launch_nothing():
     (ops.flash_attention(q, k, v).sum() + ops.rmsnorm(x, w).sum()).backward()
     assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_bwd": 0,
                                    "flash_attention": 0, "flash_attention_bwd": 0}
-    assert ops.flash_launches_by_variant() == {"scalar": 0, "mma_sync": 0,
+    assert ops.flash_launches_by_variant() == {"tf32x3": 0, "mma_sync": 0,
                                                "sm90_wgmma": 0}
-    assert ops.flash_bwd_launches_by_variant() == {"scalar": 0, "mma_sync": 0,
+    assert ops.flash_bwd_launches_by_variant() == {"tf32x3": 0, "mma_sync": 0,
                                                    "sm90_wgmma": 0}
     assert flash_mod.launches == 0 and rmsnorm_mod.launches == 0
 
@@ -260,6 +260,13 @@ _FLASH_REFUSALS = {
     "base_alignment": (lambda q, k, v: (q, torch.zeros(k.numel() + 1, dtype=k.dtype)[1:]
                                         .view(k.shape), v),
                        ValueError, "16-byte"),
+    # float32 rows are loaded by bulk copies, which need 16-byte boundaries too
+    "fp32_row_alignment": (lambda q, k, v: (q.float(), k.float(),
+                                            torch.zeros(2, 8, 2, 18)[..., :16]),
+                           ValueError, "16-byte"),
+    "fp32_base_alignment": (lambda q, k, v: (q.float(), torch.zeros(k.numel() + 1)[1:]
+                                             .view(k.shape), v.float()),
+                            ValueError, "16-byte"),
 }
 
 
@@ -572,7 +579,7 @@ def test_backward_dq_pass_head_dim_matches_the_c_header():
 @pytest.mark.parametrize("kind", flash_mod.VARIANTS)
 def test_backward_scratch_shapes(kind, hd):
     """delta and dq_acc as ``flash::BwdParams`` states them: (B, H, Sq) and none for
-    the scalar and mma.sync kernels; D and lse * log2(e) over a padded Sq, and a
+    the tf32x3 and mma.sync kernels; D and lse * log2(e) over a padded Sq, and a
     (B, H, padded Sq, hd) accumulator, for the wgmma kernel, at each head_dim it takes
     (at 80 a 64 x 64 and a 64 x 16 block for each 64 rows: 64 * 80 floats), but none
     at 256, whose dq pass writes dq itself."""
@@ -607,7 +614,7 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
     """``flash::variant_for`` in ``flash_attention.cuh``, read from the source: 16-bit
     head_dim 256 takes the TMA + wgmma kernel (kSm90Wgmma) forward and backward, and
     so does 16-bit head_dim 80; 16-bit head_dim 16 and 32 the mma.sync kernels; fp32
-    the scalar kernels both ways; every head_dim the rule sends to a kernel is
+    the 3xTF32 kernels (flash_attention_fp32.cu) both ways at every head_dim; every head_dim the rule sends to a kernel is
     compiled into that kernel's dispatch, forward and backward (so the mma.sync
     backward has no instance at 80 or 256), and no head_dim 80 call is refused; no
     library is loaded."""
@@ -615,13 +622,13 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
     enum = dict((name, int(code)) for name, code in
                 re.findall(r"(k\w+) = (\d+)", re.search(r"enum Variant \{([^}]*)\}",
                                                         header).group(1)))
-    assert [flash_mod.VARIANTS[enum[k]] for k in ("kScalar", "kMmaSync", "kSm90Wgmma")] == \
-        ["scalar", "mma_sync", "sm90_wgmma"]
+    assert [flash_mod.VARIANTS[enum[k]] for k in ("kTf32x3", "kMmaSync", "kSm90Wgmma")] == \
+        ["tf32x3", "mma_sync", "sm90_wgmma"]
     body = re.search(r"inline int variant_for\(int hd, int dtype, bool backward\) \{(.*?)\n\}",
                      header, re.S).group(1)
     assert ("if (!(backward ? one_of(kBwdHeadDims, hd) : one_of(kHeadDims, hd))) return -1;"
             in body)
-    assert "if (dtype == 0) return kScalar;" in body
+    assert "if (dtype == 0) return kTf32x3;" in body
     assert ("backward ? one_of(kSm90BwdHeadDims, hd) : one_of(kSm90HeadDims, hd)" in body
             and "return wgmma ? kSm90Wgmma : kMmaSync;" in body)
     head_dims = {False: _c_int_list("flash_attention.cuh", "kHeadDims"),
@@ -635,7 +642,7 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
         if hd not in head_dims[backward]:
             return -1
         if dtype == 0:
-            return enum["kScalar"]
+            return enum["kTf32x3"]
         return enum["kSm90Wgmma"] if hd in wgmma[backward] else enum["kMmaSync"]
 
     for dtype in (1, 2):   # bfloat16, float16
@@ -648,8 +655,8 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
             assert all(flash_mod.VARIANTS[rule(hd_, dtype, backward)] == "mma_sync"
                        for backward in (False, True))
     for backward in (False, True):
-        assert flash_mod.VARIANTS[rule(256, 0, backward)] == "scalar"
-        assert flash_mod.VARIANTS[rule(80, 0, backward)] == "scalar"
+        assert flash_mod.VARIANTS[rule(256, 0, backward)] == "tf32x3"
+        assert flash_mod.VARIANTS[rule(80, 0, backward)] == "tf32x3"
     assert all(rule(80, dtype, backward) != -1 for dtype in (0, 1, 2)
                for backward in (False, True))
     assert all(rule(96, dtype, backward) == -1 for dtype in (0, 1, 2)
@@ -672,12 +679,12 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
             "flash_attention_bwd.cu", "int dispatch_mma",
             r"case (\d+): return launch_mma<T, \1>"),
     }
-    compiled[(False, "scalar")] = _compiled_head_dims(
-        "flash_attention.cu", "int dispatch_scalar", r"case (\d+): return \(int\)launch_scalar<\1>")
-    compiled[(True, "scalar")] = _compiled_head_dims(
-        "flash_attention_bwd.cu", "int dispatch_scalar", r"case (\d+): return launch_scalar<\1>")
+    compiled[(False, "tf32x3")] = _compiled_head_dims(
+        "flash_attention_fp32.cu", "int launch_fwd_tf32x3", r"case (\d+): return launch_fwd<\1>")
+    compiled[(True, "tf32x3")] = _compiled_head_dims(
+        "flash_attention_fp32.cu", "int launch_bwd_tf32x3", r"case (\d+): return launch_bwd<\1>")
     for backward in (False, True):
-        for kind, dtype in (("sm90_wgmma", 1), ("mma_sync", 1), ("scalar", 0)):
+        for kind, dtype in (("sm90_wgmma", 1), ("mma_sync", 1), ("tf32x3", 0)):
             routed = {hd for hd in head_dims[backward]
                       if flash_mod.VARIANTS[rule(hd, dtype, backward)] == kind}
             assert routed == compiled[(backward, kind)], (backward, kind)
