@@ -21,16 +21,17 @@ average taken at the phase's start and end (read only, never a check):
            the window's edge, no mask with Sq > Skv and a softcap) and at the shapes
            the serving and training paths give it: the forwards, the attention
            forward's lse, and the two backwards (dq, dk, dv; dx, dw); records which
-           flash variant each case launched, forward and backward (16-bit head_dim
-           64/80/128/256 wgmma both ways, 16/32 mma.sync, fp32 tf32x3), shows that
+           flash variant each case launched, forward and backward (16-bit wgmma
+           both ways at every head_dim, fp32 tf32x3), shows that
            a call a TMA kernel cannot take (wgmma in 16 bits, tf32x3 in fp32) raises
            instead of running another variant or a plain version, and that a head_dim
            compiled into neither direction (96) is
            refused by the autograd wrapper, both launchers and both C entries and
            launches nothing, that two backward calls on the same inputs give dk,
            dv, dx and dw bit for bit at the training shapes of qwen2-7b, zamba2-2.7b
-           and gemma-7b (dq within tolerance where its sum runs through TMA
-           reduce-adds in no fixed order; recorded), and times kernel, plain
+           and gemma-7b and at (2, 2048, 16/16, 32) (dq within tolerance where its
+           sum runs through TMA reduce-adds in no fixed order; recorded), and times
+           kernel, plain
            version, one library call (a yardstick
            only; the port never calls it; for the RMSNorm backward three readings
            in turns with the kernel, and the names of the kernels it launches) and
@@ -47,8 +48,10 @@ average taken at the phase's start and end (read only, never a check):
            and the forward timed beside SDPA (where the window bites SDPA is given
            it as a boolean mask); the backward timed beside SDPA's at the training
            shapes of qwen2-7b, zamba2-2.7b (head_dim 80) and gemma-7b (head_dim 256),
-           all three on the wgmma kernel, and the mma.sync passes at head_dim 32 and
-           16, which no main path runs; launch_train's shapes (zamba2-2.7b, 8 x 256
+           all three on the wgmma kernel; at head_dim 32 and 16 (2 x 2048 tokens, 16
+           heads, causal), which no main path runs, both directions beside SDPA and
+           the floor the exponentials set; held at the small head_dims' own tile edges
+           (FLASH_SMALL_HD_CASES); launch_train's shapes (zamba2-2.7b, 8 x 256
            tokens): the flash forward and backward held and timed beside SDPA's, the
            RMSNorm forward at 2560 and 5120 held and timed, its backward held there
            and at train_zamba's 2 x 4096 rows; launch_reduced's (the reduced float32
@@ -56,8 +59,7 @@ average taken at the phase's start and end (read only, never a check):
            3xTF32 kernels) held and timed beside SDPA's, and replayed from a CUDA
            graph; two fp32 backward calls giving dq, dk and dv bit for bit there and
            at head_dim 80 and 256; both fp32 kernels timed at qwen2-7b's training
-           shape beside SDPA in fp32; the 16-bit mma.sync forward at head_dim 32 and
-           16 timed beside SDPA;
+           shape beside SDPA in fp32;
   small    reduced fp32 models on the card (through the kernels) against the same
            weights on the CPU (plain versions), one per family: qwen2-7b, gemma-7b,
            qwen3-32b, granite-34b, qwen3-moe, dbrx, llama-3.2-vision, whisper, zamba2,
@@ -71,8 +73,9 @@ average taken at the phase's start and end (read only, never a check):
            card's train state, bit for bit; for qwen3-moe also whether two prefills
            on the same inputs give the same bits (recorded only); then the 16-bit
            flash kernels whole: one train step's loss and every gradient of reduced
-           zamba2 at head_dim 80 and reduced gemma at head_dim 256 in bf16 (the
-           wgmma kernels both ways) against the same weights in float32 on the card
+           zamba2 at head_dim 80, reduced gemma at head_dim 256 and reduced qwen2-7b
+           at head_dim 32 in bf16 (the wgmma kernels both ways) against the same
+           weights in float32 on the card
            (BF16_MODELS; `--bf16-seeds N` runs only this check, at seeds 0..N-1);
   serve    qwen2-7b at full width and depth in bf16, random weights from a seed:
            4 requests of 2048 tokens through make_prefill_step, 16 greedy steps
@@ -210,6 +213,11 @@ PEAK_FP32_FLOPS = 67e12
 # float32-accurate products on the tensor cores: three TF32 products (495 TFLOP/s
 # dense) for each float32 one, as the float32 flash kernels compute them (3xTF32)
 PEAK_TF32X3_FLOPS = 495e12 / 3
+# base-2 exponentials on the MUFU: 16 a clock an SM (CUDA's throughput table for
+# compute capability 9.0), 132 SMs at the ~1.83 GHz the 989 TFLOP/s figure assumes.
+# One a visible (query, key) pair, forward and backward: the floor the softmax sets
+# where the products are short (head_dim 32 and 16)
+PEAK_EX2_PER_S = 16 * 132 * 1.83e9
 
 # The reference's kernel test cases: (B, Sq, Skv, H, KV, hd, causal, window)
 FLASH_CASES = [
@@ -267,8 +275,22 @@ FLASH_CROSS_CASES = [
     (1, 200, 70, 4, 2, 128, False, 0),
     (1, 200, 70, 4, 4, 64, False, 0),
     (2, 300, 129, 8, 2, 128, False, 0),
-    (1, 33, 3, 2, 2, 16, False, 0),        # three keys; the mma.sync kernels (with one
+    (1, 33, 3, 2, 2, 16, False, 0),        # three keys in one 16-column box (with one
                                            # key dq = dk = 0 exactly: nothing to hold)
+]
+# Head_dim 32 and 16 (the forward's one 32-column box under the 64-byte swizzle at 32,
+# 16-column boxes under the 32-byte swizzle otherwise; the backward's 128-row query
+# steps): ragged Sq and Skv with GQA and
+# Sq < Skv, a window spanning two 128-key tiles, one query row, no mask with Sq > Skv.
+# Held forward, lse and backward in fp32, bf16 and fp16.
+FLASH_SMALL_HD_CASES = [
+    (2, 191, 321, 8, 2, 32, True, 0),
+    (2, 255, 383, 8, 2, 16, True, 0),
+    (1, 300, 300, 4, 4, 32, True, 100),
+    (1, 300, 300, 4, 2, 16, True, 100),
+    (1, 1, 200, 4, 2, 32, True, 0),
+    (1, 200, 130, 4, 4, 16, False, 0),
+    (1, 260, 260, 4, 4, 32, False, 0),
 ]
 # The families served at full size after qwen2-7b: (phase, architecture, prompt
 # tokens, prefill/decode agreement check: in the served dtype, none, or on a
@@ -303,21 +325,16 @@ SMALL_HEAD_DIMS = (("zamba2_2p7b", 80),)
 # against the same bf16-rounded weights in float32 on the card.  S_BF16 spans four of
 # the backward's 64-row query tiles and two 128-key tiles (four of 64 at head_dim 256),
 # and is a multiple of the Mamba2 chunk (the chunkwise SSD under gradients).
-BF16_MODELS = (("zamba2_2p7b", 80), ("gemma_7b", 256))
+BF16_MODELS = (("zamba2_2p7b", 80), ("gemma_7b", 256), ("qwen2_7b", 32))
 B_BF16, S_BF16 = 2, 256
 # the small phase's checkpoint round trips: one of each kind of parameter tree
 SMALL_CHECKPOINTS = ("qwen2_7b", "qwen3_moe_30b_a3b", "whisper_medium", "zamba2_2p7b")
 SCENARIO = "fig6c_dynamic_bw"    # the scenarios phase's catalog scenario
-SM90_HEAD_DIMS = (64, 80, 128, 256)   # 16-bit head_dims the forward runs on the wgmma kernel
-SM90_BWD_HEAD_DIMS = (64, 80, 128, 256)   # ... and the backward
-# the kernels line's entry of each flash variant, forward (every 16-bit head_dim a
-# path has is a wgmma one; every float32 model, launch_reduced's among them, runs the
-# tf32x3 kernels; the mma.sync kernel, at head_dim 16 and 32, runs on no main path)
-# and backward (likewise)
-FLASH_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention", "tf32x3": "flash_attention_tf32x3",
-                         "mma_sync": "flash_attention_mma_sync"}
+# the kernels line's entry of each flash variant, forward (every 16-bit call is a
+# wgmma one; every float32 model, launch_reduced's among them, runs the tf32x3
+# kernels) and backward (likewise)
+FLASH_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention", "tf32x3": "flash_attention_tf32x3"}
 FLASH_BWD_VARIANT_KERNELS = {"sm90_wgmma": "flash_attention_bwd",
-                             "mma_sync": "flash_attention_bwd_mma_sync",
                              "tf32x3": "flash_attention_bwd_tf32x3"}
 UNCOMPILED_HEAD_DIM = 96          # compiled into neither direction: must be refused
 RMSNORM_SHAPES = [(4, 37, 128), (1, 1, 256), (8, 512), (2, 3, 5, 64)]
@@ -356,10 +373,12 @@ TOL_MESH_LOSS = 5e-3
 # seed 0: zamba2's embedding gradient 45 % of its largest magnitude, its shared
 # attention's 9-16 %; gemma's worst 1.5 %), so at zamba2 only the loss is a tight
 # check.  Measured on the card over seeds 0-5 (--bf16-seeds 6): zamba2's loss within
-# 5.2e-4, gradients 0.94 and 0.54; gemma's 5.1e-5, 0.0173 and 0.0140.  The
-# tolerances are about twice the worst.
+# 5.2e-4, gradients 0.94 and 0.54; gemma's 5.1e-5, 0.0173 and 0.0140; qwen2-7b's at
+# head_dim 32 (its reduced() width, the wgmma kernels' narrow boxes both ways)
+# 1.04e-4, 0.0201 and 0.0192.  The tolerances are about twice the worst.
 TOL_BF16 = {"zamba2_2p7b": (1e-3, 2.0, 1.1),    # (loss, largest entry, L2 norm)
-            "gemma_7b": (1e-4, 0.035, 0.03)}
+            "gemma_7b": (1e-4, 0.035, 0.03),
+            "qwen2_7b": (2e-4, 0.04, 0.04)}
 # int8 gradient compression (collectives phase), the reference's formula in the
 # leaf's dtype: in float32 round(x / scale) is within half a step of x / scale and
 # q * scale exact to 2^-24, so g is within one scale (the reference test's bound).  In
@@ -639,11 +658,10 @@ def run(args, torch) -> None:
         version rounds its scores to 16 bits, which is its error, not the kernel's."""
         return ops.mha_reference(q.float(), k.float(), v.float(), **kw)
 
-    def expected_variant(dtype, hd, backward: bool = False) -> str:
-        if dtype == torch.float32:
-            return "tf32x3"
-        wgmma = SM90_BWD_HEAD_DIMS if backward else SM90_HEAD_DIMS
-        return "sm90_wgmma" if hd in wgmma else "mma_sync"
+    def expected_variant(dtype) -> str:
+        """The split by type, forward and backward at every head_dim: tf32x3 in
+        float32, wgmma in 16 bits."""
+        return "tf32x3" if dtype == torch.float32 else "sm90_wgmma"
 
     def flash_case(case, dtype, tol, scale=1.0, softcap=0.0) -> dict:
         """One checked call; records the variant it launched and fails if that is
@@ -654,7 +672,7 @@ def run(args, torch) -> None:
         got = ops.flash_attention(q, k, v, **kw)
         after = ops.flash_launches_by_variant()
         ran = [key for key in after if after[key] != before[key]]
-        want_variant = expected_variant(dtype, case[5])
+        want_variant = expected_variant(dtype)
         if ran != [want_variant] or flash_mod.variant(dtype, case[5]) != want_variant:
             fail(f"flash {case} {dtype}: launched {ran}, expected [{want_variant!r}]")
         name = f"flash {case} {dtype}" + (f" softcap {softcap:g}" if softcap else "")
@@ -666,7 +684,8 @@ def run(args, torch) -> None:
     flash_cases = []
     for dtype, tol in ((torch.float32, TOL_FLASH_FP32),
                        (torch.bfloat16, TOL_16BIT), (torch.float16, TOL_16BIT)):
-        for case in FLASH_CASES + FLASH_TILE_EDGE_CASES + FLASH_CROSS_CASES + FLASH_HD80_CASES:
+        for case in (FLASH_CASES + FLASH_TILE_EDGE_CASES + FLASH_CROSS_CASES + FLASH_HD80_CASES
+                     + FLASH_SMALL_HD_CASES):
             flash_cases.append(flash_case(case, dtype, tol))
         stol = TOL_FLASH_SOFTCAP if dtype == torch.float32 else TOL_16BIT
         for case in FLASH_SOFTCAP_CASES:
@@ -684,7 +703,7 @@ def run(args, torch) -> None:
         grads = flash_mod.launch_backward(q, k, v, o, lse, do, causal, window, softcap)
         after = ops.flash_bwd_launches_by_variant()
         ran = [key for key in after if after[key] != before[key]]
-        want_variant = expected_variant(dtype, case[5], backward=True)
+        want_variant = expected_variant(dtype)
         if ran != [want_variant] or flash_mod.bwd_variant(dtype, case[5]) != want_variant:
             fail(f"flash backward {case} {dtype}: launched {ran}, expected [{want_variant!r}]")
         kw = dict(causal=causal, window=window, softcap=softcap)
@@ -705,7 +724,7 @@ def run(args, torch) -> None:
     flash_bwd_cases = []
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for case in (FLASH_CASES + FLASH_TILE_EDGE_CASES + FLASH_BWD_EDGE_CASES
-                     + FLASH_CROSS_CASES + FLASH_HD80_CASES):
+                     + FLASH_CROSS_CASES + FLASH_HD80_CASES + FLASH_SMALL_HD_CASES):
             flash_bwd_cases.append(flash_bwd_case(case, dtype))
         for case in FLASH_SOFTCAP_CASES:
             flash_bwd_cases.append(flash_bwd_case(case, dtype, scale=3.0, softcap=20.0))
@@ -757,7 +776,7 @@ def run(args, torch) -> None:
         o, lse = flash_mod.launch_forward(q, k, v, True, 0, 0.0, with_lse=True)
         do = randn(q.shape, dtype)
         grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
-        delta, dq_acc = flash_mod._bwd_scratch(expected_variant(dtype, case[5], True), q)
+        delta, dq_acc = flash_mod._bwd_scratch(expected_variant(dtype), q)
         call = _build.FlashBwdCall(
             q=q_off.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), o=o.data_ptr(),
             dout=do.data_ptr(), lse=lse.data_ptr(), delta=delta.data_ptr(),
@@ -1184,10 +1203,22 @@ def run(args, torch) -> None:
     for key, case in (("head_dim_80", zamba_train_case), ("head_dim_256", gemma_train_case)):
         bwd_timed[key] = timed_backward(case)
         bwd_timed[key]["repeat"], bwd_timed[key]["kernel_ms"] = repeat_and_kernels(case)
-    # the mma.sync passes, at the head_dims they keep (no main path runs them): 2 x
-    # 2048 tokens, 16 heads
-    bwd_mma = {f"head_dim_{hd_}": timed_backward((B_TRAIN, 2048, 2048, 16, 16, hd_, True, 0))
-               for hd_ in (32, 16)}
+    # head_dim 32 and 16 (no main path runs them; a reduced model in 16 bits does):
+    # 2 x 2048 tokens, 16 heads, causal, beside SDPA's and the floor the exponentials
+    # set; at 32 two calls repeated (dk, dv bit for bit) and each kernel's device time
+    small_cases = {f"head_dim_{hd_}": (B_TRAIN, 2048, 2048, 16, 16, hd_, True, 0)
+                   for hd_ in (32, 16)}
+
+    def ex2_floor_ms(case) -> float:
+        """The least time the card's MUFU takes for one exponential a visible pair."""
+        B_, Sq_, Skv_, H_, _, _, causal_, window_ = case
+        return visible_pairs(Sq_, Skv_, causal_, window_) * B_ * H_ / PEAK_EX2_PER_S * 1e3
+
+    bwd_small = {}
+    for key, case in small_cases.items():
+        bwd_small[key] = {**timed_backward(case), "ex2_floor_ms": ex2_floor_ms(case)}
+    bwd_small["head_dim_32"]["repeat"], bwd_small["head_dim_32"]["kernel_ms"] = \
+        repeat_and_kernels(small_cases["head_dim_32"])
 
     # the launcher's training path (launch_train: zamba2-2.7b at full depth, B_LAUNCH x
     # S_LAUNCH tokens, its 4096-token window not biting), bf16: the flash forward held
@@ -1245,14 +1276,13 @@ def run(args, torch) -> None:
     long_fp32_fwd = timed_flash(train_case, long_fp32_entry, torch.float32)
     torch.cuda.empty_cache()
     long_fp32_bwd = timed_backward(train_case, torch.float32)
-    # the mma.sync forward, at the 16-bit head_dims 32 and 16 it keeps (no main path
-    # runs it): 2 x 2048 tokens, 16 heads, beside SDPA
-    fwd_mma = {}
-    for hd_ in (32, 16):
-        mma_case = (B_TRAIN, 2048, 2048, 16, 16, hd_, True, 0)
-        mma_entry = flash_case(mma_case, bf16, TOL_16BIT)
-        flash_cases.append(mma_entry)
-        fwd_mma[f"head_dim_{hd_}"] = timed_flash(mma_case, mma_entry)
+    # the forward at head_dim 32 and 16 (no main path runs them), beside SDPA and
+    # the floor the exponentials set
+    fwd_small = {}
+    for key, case in small_cases.items():
+        small_entry = flash_case(case, bf16, TOL_16BIT)
+        flash_cases.append(small_entry)
+        fwd_small[key] = {**timed_flash(case, small_entry), "ex2_floor_ms": ex2_floor_ms(case)}
     torch.cuda.empty_cache()
     # the pipeline phase's shapes (qwen2-7b's layers, microbatches of 1 x PIPE_SEQ),
     # bf16: the flash forward held, its backward held and timed, the RMSNorm forward
@@ -1368,6 +1398,8 @@ def run(args, torch) -> None:
             "head_dim_256": path_timed["serve_gemma"][0],
             # zamba2-2.7b's: its 64- and 16-column boxes, and where its window bites
             "head_dim_80": {**path_timed["serve_zamba"][0], "window_bites": window_timed},
+            # narrow boxes only: (2, 2048, 16/16, hd), causal
+            "head_dim_32": fwd_small["head_dim_32"], "head_dim_16": fwd_small["head_dim_16"],
             "path_shapes": path_timed},
         "rmsnorm_bwd": {
             "name": "rmsnorm_bwd", "route": "cuda",
@@ -1394,37 +1426,11 @@ def run(args, torch) -> None:
             # zamba2-2.7b's training shape (train_zamba) and gemma-7b's, each with its
             # repeat check and kernel times
             "head_dim_80": bwd_timed["head_dim_80"], "head_dim_256": bwd_timed["head_dim_256"],
+            # (2, 2048, 16/16, hd), causal; at 32 with its repeat check and kernel times
+            "head_dim_32": bwd_small["head_dim_32"], "head_dim_16": bwd_small["head_dim_16"],
             "path_shapes": {"launch_train": launch_bwd, "pipeline": pipe_bwd},
             "worst_err_all_cases": max(max(c["max_err_share"].values())
                                        for c in flash_bwd_cases)},
-        # the mma.sync backward passes, at the 16-bit head_dims 32 and 16 they keep;
-        # no main path launches them
-        "flash_attention_bwd_mma_sync": {
-            "name": "flash_attention_bwd_mma_sync", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:102",
-            "launches": 0, "dtype": "bfloat16",
-            "shape": {"q": [B_TRAIN, 2048, 16, 32], "kv": [B_TRAIN, 2048, 16, 32],
-                      "causal": True},
-            "tol": TOL_16BIT, "err_is": "share of the largest magnitude (lse, dq, dk, dv)",
-            **{key: bwd_mma["head_dim_32"][key]
-               for key in ("max_abs_err", "max_err_share", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms", "tflops", "variant")},
-            "launches_by_variant": {}, "head_dim_16": bwd_mma["head_dim_16"]},
-        # the mma.sync forward, at the 16-bit head_dims 32 and 16 it keeps; no main
-        # path launches it
-        "flash_attention_mma_sync": {
-            "name": "flash_attention_mma_sync", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:155",
-            "launches": 0, "dtype": "bfloat16",
-            "shape": {"q": [B_TRAIN, 2048, 16, 32], "kv": [B_TRAIN, 2048, 16, 32],
-                      "causal": True},
-            "tol": TOL_16BIT,
-            **{key: fwd_mma["head_dim_32"][key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "tflops", "variant")},
-            "launches_by_variant": {}, "head_dim_16": fwd_mma["head_dim_16"]},
         # the fp32 (3xTF32) kernels, at launch_reduced's shape (the main path that runs
         # them at scale; the small phase and the bf16 check's float32 side run them
         # too), with their CUDA-graph times, and at qwen2-7b's training shape
@@ -1712,7 +1718,7 @@ def run(args, torch) -> None:
         n_flash = want_prefill["flash_attention"]
         if counts_prefill != want_prefill:
             fail(f"{phase}: prefill launched {counts_prefill}, expected {want_prefill}")
-        want_kind = expected_variant(scfg.torch_dtype, scfg.hd)
+        want_kind = expected_variant(scfg.torch_dtype)
         want_variants = {kind: n_flash if kind == want_kind else 0 for kind in variants_prefill}
         if variants_prefill != want_variants:
             fail(f"{phase}: prefill flash launches by variant {variants_prefill}, "
@@ -1851,8 +1857,7 @@ def run(args, torch) -> None:
             flop_params += (n_shared - 1) * sum(p.numel() for p in model.shared.parameters())
         per_step = train_launches(tcfg)
         want = {k: steps * n for k, n in per_step.items()}
-        fwd_kind = expected_variant(tcfg.torch_dtype, tcfg.hd)
-        bwd_kind = expected_variant(tcfg.torch_dtype, tcfg.hd, backward=True)
+        fwd_kind = bwd_kind = expected_variant(tcfg.torch_dtype)
         path_want[phase] = by_kernel(want, fwd_kind, bwd_kind)
         if counts != want:
             fail(f"{phase}: {steps} steps launched {counts}, expected {want}")
@@ -2384,8 +2389,7 @@ def run(args, torch) -> None:
         per_layer = {"rmsnorm": 2, "flash_attention": 1, "rmsnorm_bwd": 2,
                      "flash_attention_bwd": 1}
         want = {k: n * PIPE_LAYERS * PIPE_M for k, n in per_layer.items()}
-        fwd_kind = expected_variant(bf16, hd)
-        bwd_kind = expected_variant(bf16, hd, backward=True)
+        fwd_kind = bwd_kind = expected_variant(bf16)
         path_want[phase] = by_kernel(want, fwd_kind, bwd_kind)
         if counts != want:
             fail(f"{phase}: launched {counts}, expected {want}")
@@ -2632,7 +2636,7 @@ def run(args, torch) -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype", "tol")
     keys += ("variant", "launches_by_path", "launches_by_variant", "head_dim_256",
-             "head_dim_80", "head_dim_16", "graph_ms", "long_shape")
+             "head_dim_80", "head_dim_32", "head_dim_16", "graph_ms", "long_shape")
     kernels_line = {"kernels": [{key: kern[key] for key in keys if key in kern}
                                 for kern in kernels.values()]}
     final = {"ok": True, "device": {"platform": "gpu",

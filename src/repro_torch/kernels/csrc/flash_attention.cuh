@@ -1,7 +1,7 @@
-// Shared between the fused attention kernels: the forward's (flash_attention.cu:
-// mma.sync; flash_attention_sm90.cu: TMA + wgmma), the backward's
-// (flash_attention_bwd.cu: D and mma.sync; flash_attention_bwd_sm90.cu: TMA + wgmma)
-// and the float32 forward and backward (flash_attention_fp32.cu: 3xTF32).
+// Shared between the fused attention kernels: the 16-bit forward's
+// (flash_attention_sm90.cu: TMA + wgmma) and backward's (flash_attention_bwd_sm90.cu:
+// TMA + wgmma), the float32 forward and backward (flash_attention_fp32.cu: 3xTF32), and
+// their C entries (flash_attention.cu, flash_attention_bwd.cu).
 //
 // They replace the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel,
 // launched by _flash_fwd_kernel_call, and the VJP _flash_vjp_bwd takes of
@@ -10,7 +10,8 @@
 // tile can see and the query range a key tile can see, the score rule and the
 // choice of kernel by type and head_dim, forward and backward.
 //
-// Bound on this card: operations (see flash_attention.cu); nothing here moves data.
+// Bound on this card: operations (see flash_attention_sm90.cu); nothing here moves
+// data.
 
 #pragma once
 
@@ -38,7 +39,7 @@ struct Params {
 
 // One backward call: the forward's inputs, its output o and per-row lse, dO, and the
 // gradients.  delta is float32 scratch: (B, H, Sq) D = rowsum(dO o O) for the
-// tf32x3 and mma.sync kernels; for the wgmma kernel D then lse * log2(e), each
+// tf32x3 kernels; for the wgmma kernel D then lse * log2(e), each
 // (B, H, sq_pad(Sq)), rows past Sq padded (D 0, lse +inf), and dq_acc its float32
 // dq accumulator of B * H * sq_pad(Sq) * hd floats, laid out as that kernel states
 // (unused by the others, and by the wgmma kernel at kDqPassHeadDim, whose dq pass
@@ -72,18 +73,16 @@ constexpr int kDqPassHeadDim = 256;
 
 // Kernel variants, as repro_flash_attention_variant and
 // repro_flash_attention_bwd_variant report them.
-enum Variant { kTf32x3 = 0, kMmaSync = 1, kSm90Wgmma = 2 };
+enum Variant { kTf32x3 = 0, kSm90Wgmma = 1 };
 
-// The head_dims compiled in, forward and backward, and the 16-bit ones the TMA +
-// wgmma kernels take: the forward and the backward at 64, 80, 128 and 256 (16 and 32
-// keep the mma.sync kernels).  Head_dim 80 (zamba2's shared attention): its 160-byte
-// 16-bit row is wider than one 128-byte swizzle atom, so both wgmma kernels cut it
-// into a 64-column box and a 16-column one under the 32-byte swizzle
-// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu).
+// The head_dims compiled in, forward and backward, in every type.  Both wgmma kernels
+// cut a 16-bit row into 64-column boxes under the 128-byte swizzle and 16-column ones
+// under the 32-byte swizzle (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu):
+// head_dim 80 (zamba2's shared attention), whose 160-byte row is wider than one
+// 128-byte swizzle atom, as one of each; 32 and 16, narrower than one, as narrow boxes
+// only (the forward's one 32-column box under the 64-byte swizzle at 32).
 constexpr int kHeadDims[] = {16, 32, 64, 80, 128, 256};
 constexpr int kBwdHeadDims[] = {16, 32, 64, 80, 128, 256};
-constexpr int kSm90HeadDims[] = {64, 80, 128, 256};
-constexpr int kSm90BwdHeadDims[] = {64, 80, 128, 256};
 
 template <int N>
 inline bool one_of(const int (&set)[N], int hd) {
@@ -92,16 +91,14 @@ inline bool one_of(const int (&set)[N], int hd) {
   return false;
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The split by shape: 16-bit
-// inputs at the wgmma head_dims above take the TMA + wgmma kernel; the other 16-bit
-// head_dims the mma.sync kernel; float32, at every head_dim, the 3xTF32 kernels
-// (flash_attention_fp32.cu).  -1: not compiled in.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  The split by type: 16-bit
+// inputs take the TMA + wgmma kernels at every compiled head_dim; float32, at every
+// head_dim, the 3xTF32 kernels (flash_attention_fp32.cu).  -1: not compiled in.
 inline int variant_for(int hd, int dtype, bool backward) {
   if (!(backward ? one_of(kBwdHeadDims, hd) : one_of(kHeadDims, hd))) return -1;
   if (dtype == 0) return kTf32x3;
   if (dtype != 1 && dtype != 2) return -1;
-  const bool wgmma = backward ? one_of(kSm90BwdHeadDims, hd) : one_of(kSm90HeadDims, hd);
-  return wgmma ? kSm90Wgmma : kMmaSync;
+  return kSm90Wgmma;
 }
 
 // Range of kv positions that a tile of query rows [q0, q0 + rows) can see, as

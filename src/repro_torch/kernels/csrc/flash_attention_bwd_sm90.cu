@@ -1,20 +1,20 @@
 // Fused attention backward for Hopper (sm_90a): TMA + wgmma, warp-specialised.
-// 16-bit inputs (bf16, fp16) at head_dim 64, 80, 128 and 256; plain C++ launcher
-// called from repro_flash_attention_bwd (flash_attention_bwd.cu) through
+// 16-bit inputs (bf16, fp16) at head_dim 16, 32, 64, 80, 128 and 256; plain C++
+// launcher called from repro_flash_attention_bwd (flash_attention_bwd.cu) through
 // flash::launch_bwd_sm90.
 //
 // Replaces the backward of the TPU kernel src/repro/kernels/flash_attention.py
 // (_flash_kernel's VJP: _flash_vjp_bwd differentiates mha_reference; the reference
-// has no backward kernel) for those shapes.  It computes what flash_attention_bwd.cu
+// has no backward kernel) for 16-bit inputs.  It computes what flash_attention_bwd.cu
 // states, with the same masks (causal, window, ragged tails, query offset Skv - Sq)
 // and softcap derivative: dq, dk, dv from q, k, v, o, lse and dO, dk and dv summed
 // over the G = H / KV query heads of each KV head.
 //
 // Bound on this card: operations.  10 * hd flops per visible (query, key) pair (Q K^T,
 // dO V^T, P^T dO, dS K, dS^T Q), ~0.6 TFLOP at the training shape against ~0.3 GB
-// moved.  The mma.sync kernels ran at ~99 TFLOP/s of that work: every warp loaded its
-// own fragments and issued its products in order (latency inside the warp), and the
-// two passes recomputed Q K^T and dO V^T (14 * hd a pair).  What this design does
+// moved.  Warps that load their own fragments and issue mma.sync in order run at
+// ~99 TFLOP/s of that work (latency inside the warp), and a dk/dv pass beside a dq
+// pass recomputes Q K^T and dO V^T (14 * hd a pair).  What this design does
 // (FlashAttention-3's backward):
 //   * one pass: a persistent grid, one block per SM, walking work tiles of (batch,
 //     KV head, 128-key tile), early key tiles first (under causal masking they see the
@@ -97,6 +97,17 @@
 //     live only while they are in use; at head_dim 80 too.  (Zeroing dQ there through
 //     its 64- and 16-column views makes ptxas serialise the wgmmas, C7520, so there its
 //     first k16 step overwrites it instead.)
+// Head_dim 32 and 16 keep head_dim 64's shape: 128-key work tiles, 128 query rows a
+// step, dQ split by rows between the warpgroups (64 rows of dS each times all 128
+// keys), one dQ staging buffer, bulk reduce-adds into a 64 x hd block a step.  Their
+// 64- or 32-byte rows are two (one) 16-column boxes under the 32-byte swizzle, as
+// head_dim 80's last columns: S^T and dP^T take one k16 step a box (the first starts
+// them), dV, dK and dQ one n16 product a box a k16 step into registers 8y...  dk and dv
+// are 16 (8) registers each, so S^T and dP^T (64 + 64) fit as at 64.  One exponential
+// a visible pair takes about as long as the 10 hd operations there at the tensor
+// cores' peak, so the MUFU and the products share the pace.  dk and dv repeat bit for
+// bit; dq, summed by reduce-adds in no fixed order, does not (a dQ pass would keep it
+// repeatable but recompute every exponential).
 // rows past Sq / Skv are zero-filled by TMA; the kpos < Skv mask term stays (a zero
 // key scores 0, not -inf).  A barrier wait that never completes traps after 4 s.
 
@@ -126,8 +137,9 @@ struct Cfg {
   // head_dim 256: both warpgroups on one 64-key tile, dQ in a pass of its own
   // (flash_bwd_sm90_dq_pass_kernel)
   static constexpr bool kWide = HD == kDqPassHeadDim;
+  static constexpr bool kSmall = HD <= 32;            // head_dim 32, 16: narrow boxes only
   static constexpr int kBN = kWide ? 64 : 128;        // keys per work tile
-  static constexpr int BM = HD == 64 ? 128 : 64;      // query rows a step
+  static constexpr int BM = HD == 64 || kSmall ? 128 : 64;  // query rows a step
   static constexpr int kStages = 2;                   // the Q / dO / lse / D ring
   static constexpr int kBoxes64 = HD / kBoxCols;      // 64-column boxes of a row
   static constexpr int kBoxes16 = HD % kBoxCols / kNarrowCols;  // then 16-column ones
@@ -136,7 +148,7 @@ struct Cfg {
   static constexpr int kQCol0 = kWide ? kQCols : 0;
   static constexpr int kKVCols = kWide ? HD / 2 : HD;
   static constexpr int kKVCol0 = kWide ? kKVCols : 0;
-  static constexpr int kDqCols = HD == 80 ? 80 : 64;
+  static constexpr int kDqCols = HD == 80 ? 80 : kSmall ? HD : 64;
   static constexpr int kDqKeys = HD == 80 ? 64 : kBN;
   static constexpr int kDqKey0 = HD == 80 ? 64 : 0;   // split along the keys (the note)
   static constexpr int kDqRowStep = BM == 128 ? 64 : 0;
@@ -145,8 +157,10 @@ struct Cfg {
   static constexpr int kKVBytes = kBN * HD * 2;    // one K or one V tile
   static constexpr int kDSBytes = kBN * BM * 2;    // one dS^T (or P^T) tile
   static constexpr int kDqBytes = 64 * kDqCols * 4;  // one staged dQ block
-  // byte offset of a tile's 16-column box (after its 64-column boxes)
-  __host__ __device__ static constexpr uint32_t box16(int rows) { return kBoxes64 * rows * 128; }
+  // byte offset of a tile's 16-column box y (after its 64-column boxes)
+  __host__ __device__ static constexpr uint32_t box16(int rows, int y = 0) {
+    return kBoxes64 * rows * 128 + y * rows * 32;
+  }
   static constexpr int kK = 0;
   static constexpr int kV = kK + kKVBytes;
   static constexpr int kQ = kV + kKVBytes;                // stage s at kQ + s * kQBytes
@@ -165,7 +179,8 @@ struct Cfg {
   static constexpr int kBytes = kBar + (2 * kStages + 4 + 5 * kDqBufs) * 8;
   static constexpr int kAlloc = kBytes + 1024;            // room to align the base to 1024
   static_assert(kAlloc <= 232448, "shared memory a block can use");
-  static_assert(kBoxes64 * kBoxCols + kBoxes16 * kNarrowCols == HD && kBoxes16 <= 1,
+  static_assert(kBoxes64 * kBoxCols + kBoxes16 * kNarrowCols == HD &&
+                    (kBoxes16 <= 1 || kBoxes64 == 0),
                 "boxes cover the head");
   static_assert(kDS % 1024 == 0 && kP % 1024 == 0 && kQBytes % 1024 == 0 &&
                     kKVBytes % 1024 == 0 && kDSBytes % 1024 == 0,
@@ -230,9 +245,9 @@ __global__ void flash_bwd_sm90_prep_kernel(const BwdParams p) {
   const int h = (int)((idx / sq_p) % p.H);
   const int b = (int)(idx / ((long long)sq_p * p.H));
   float acc = 0.f;
-  // E consecutive elements a lane (HD / 32, or 4 at head_dim 80: lanes 0-19), one 4-,
-  // 8- or 16-byte load each
-  constexpr int E = HD % 32 == 0 ? HD / 32 : 4;
+  // E consecutive elements a lane (HD / 32 at 64, 128 and 256; 4 at 80, 32 and 16:
+  // lanes 0-19, 0-7, 0-3), one 4-, 8- or 16-byte load each
+  constexpr int E = HD % 32 == 0 && HD >= 64 ? HD / 32 : 4;
   if (row < p.Sq && lane < HD / E) {
     using V = typename std::conditional<
         E == 8, uint4, typename std::conditional<E == 4, uint2, uint32_t>::type>::type;
@@ -446,10 +461,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       auto prefetch = [](const CUtensorMap* m) {
         asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m)) : "memory");
       };
-      prefetch(&tm_q);
-      prefetch(&tm_k);
-      prefetch(&tm_v);
-      prefetch(&tm_do);
+      if constexpr (kB64 > 0) {
+        prefetch(&tm_q);
+        prefetch(&tm_k);
+        prefetch(&tm_v);
+        prefetch(&tm_do);
+      }
       if constexpr (kB16 > 0) {
         prefetch(&tn_q);
         prefetch(&tn_k);
@@ -457,14 +474,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         prefetch(&tn_do);
       }
       // one tile of `rows` rows from row r0 of (head h, batch b) into dst: its
-      // 64-column boxes, then its 16-column one, all completing on barrier `done`
+      // 64-column boxes, then its 16-column ones, all completing on barrier `done`
       auto load = [&](uint32_t dst, const CUtensorMap* wide, const CUtensorMap* narrow,
                       uint32_t done, int rows, int r0, int h, int b) {
 #pragma unroll
         for (int x = 0; x < kB64; ++x)
           tma_load_4d(dst + x * rows * 128, wide, done, x * kBoxCols, r0, h, b);
-        if constexpr (kB16 > 0)
-          tma_load_4d(dst + C::box16(rows), narrow, done, kB64 * kBoxCols, r0, h, b);
+#pragma unroll
+        for (int y = 0; y < kB16; ++y)
+          tma_load_4d(dst + C::box16(rows, y), narrow, done, kB64 * kBoxCols + y * kNarrowCols,
+                      r0, h, b);
       };
       const float* lse2 = p.delta + (long long)p.B * p.H * sq_p;
       // j: this block's work tiles so far; it: its steps so far (the ring's position
@@ -527,26 +546,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 
         // S^T = K Q^T and dP^T = V dO^T over this warpgroup's keys and query columns:
         // K-major A and B, 32 bytes a k16 step, four in each 64-column box, then one
-        // over the 16-column box's whole 32-byte row (8-row groups 256 bytes apart)
-        if constexpr (kB16 > 0 || C::kWide) {
+        // over each 16-column box's whole 32-byte row (8-row groups 256 bytes apart;
+        // with no 64-column box, head_dim 32 and 16, the first of them starts S^T)
+        if constexpr ((kB16 > 0 && kB64 > 0) || C::kWide) {
           zero(st);
           zero(dpt);
         }
         wgmma_fence();
         {
           auto issue = [&](float (&acc)[kQCols / 2], uint32_t a, uint32_t b) {
-            const uint64_t ad = opaque(smem_desc(a + row0 * 128, 16, 1024));
-            const uint64_t bd = opaque(smem_desc(b + qc0 * 128, 16, 1024));
+            if constexpr (kB64 > 0) {
+              const uint64_t ad = opaque(smem_desc(a + row0 * 128, 16, 1024));
+              const uint64_t bd = opaque(smem_desc(b + qc0 * 128, 16, 1024));
 #pragma unroll
-            for (int kk = 0; kk < 4 * kB64; ++kk) {
-              const uint32_t box = (kk >> 2) * 128, in = (kk & 3) * 32;  // bytes; >> 4 below
-              Wg<T>::template ss<kQCols>(acc, ad + ((box * kBN + in) >> 4),
-                                         bd + ((box * BM + in) >> 4), kk > 0);
+              for (int kk = 0; kk < 4 * kB64; ++kk) {
+                const uint32_t box = (kk >> 2) * 128, in = (kk & 3) * 32;  // bytes; >> 4 below
+                Wg<T>::template ss<kQCols>(acc, ad + ((box * kBN + in) >> 4),
+                                           bd + ((box * BM + in) >> 4), kk > 0);
+              }
             }
-            if constexpr (kB16 > 0)
+#pragma unroll
+            for (int y = 0; y < kB16; ++y)
               Wg<T>::template ss<kQCols>(
-                  acc, opaque(smem_desc(a + C::box16(kBN) + row0 * 32, 16, 256, kSwizzle32B)),
-                  opaque(smem_desc(b + C::box16(BM) + qc0 * 32, 16, 256, kSwizzle32B)), 1);
+                  acc, opaque(smem_desc(a + C::box16(kBN, y) + row0 * 32, 16, 256, kSwizzle32B)),
+                  opaque(smem_desc(b + C::box16(BM, y) + qc0 * 32, 16, 256, kSwizzle32B)),
+                  kB64 > 0 || y > 0);
           };
           issue(st, sK, sQ(s));
           issue(dpt, sV, sdO(s));
@@ -654,6 +678,24 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int kk = 0; kk < BM / 16; ++kk)
             Wg<T>::template ss<kKVCols, 0, 1>(dk, sd + ((kk * 32) >> 4),
                                               qd + ((kk * 16 * 128) >> 4), 1);
+        } else if constexpr (C::kSmall) {
+          // columns 16y.. (registers 8y..) from 16-column box y (8-row groups 256 bytes
+          // apart)
+          wgmma_fence();
+          const uint64_t on = opaque(smem_desc(sdO(s), BM * 32, 256, kSwizzle32B));
+#pragma unroll
+          for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+            for (int y = 0; y < kB16; ++y)
+              Wg<T>::template rs<16>(*reinterpret_cast<float(*)[8]>(dv + 8 * y), pa[kk],
+                                     on + ((y * BM * 32 + kk * 16 * 32) >> 4), 1);
+          const uint64_t qn = opaque(smem_desc(sQ(s), BM * 32, 256, kSwizzle32B));
+#pragma unroll
+          for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+            for (int y = 0; y < kB16; ++y)
+              Wg<T>::template rs<16>(*reinterpret_cast<float(*)[8]>(dk + 8 * y), da[kk],
+                                     qn + ((y * BM * 32 + kk * 16 * 32) >> 4), 1);
         } else if constexpr (kB16 > 0) {
           // columns 0-63 (registers 0-31) from the 64-column box, 64-79 (32-39) from
           // the 16-column one (8-row groups 256 bytes apart)
@@ -697,32 +739,44 @@ __global__ void __launch_bounds__(kThreads, 1)
         } else {
           // dQ = dS K once both warpgroups' dS^T is in shared memory: A = dS read
           // transposed (MN-major), B = K MN-major, k16 steps over kDqKeys keys from
-          // dq_key0: at head_dim 64 rows 64c.. of dS, at 128 columns 64c.. of K, at 80
-          // all 80 columns over this warpgroup's own 64 keys
+          // dq_key0: at head_dim 64, 32 and 16 rows 64c.. of dS (at 32 and 16 each of
+          // K's 16-column boxes into dQ's registers 8y..), at 128 columns 64c.. of K, at
+          // 80 all 80 columns over this warpgroup's own 64 keys
           mbar_wait(ds_full(u), (it >> 1) & 1);
           wgmma_fence();
           {
             const uint64_t ad = opaque(smem_desc(
                 sDS(u) + (C::kDqRowStep ? c : 0) * (kBN * 128) + dq_key0 * 128, kBN * 128, 1024));
-            const uint64_t bd = opaque(smem_desc(
-                sK + C::kDqColBlk * c * (kBN * 128) + dq_key0 * 128, kBN * 128, 1024));
-            if constexpr (kB16 > 0) {
-              float(&dq64)[32] = *reinterpret_cast<float(*)[32]>(dq);
-              float(&dq16)[8] = *reinterpret_cast<float(*)[8]>(dq + 32);
-              const uint64_t bn = opaque(
-                  smem_desc(sK + C::box16(kBN) + dq_key0 * 32, kBN * 32, 256, kSwizzle32B));
-#pragma unroll
-              for (int kk = 0; kk < C::kDqKeys / 16; ++kk) {
-                Wg<T>::template ss<64, 1, 1>(dq64, ad + ((kk * 16 * 128) >> 4),
-                                             bd + ((kk * 16 * 128) >> 4), kk > 0);
-                Wg<T>::template ss<16, 1, 1>(dq16, ad + ((kk * 16 * 128) >> 4),
-                                             bn + ((kk * 16 * 32) >> 4), kk > 0);
-              }
-            } else {
+            if constexpr (C::kSmall) {
+              const uint64_t bn = opaque(smem_desc(sK, kBN * 32, 256, kSwizzle32B));
 #pragma unroll
               for (int kk = 0; kk < C::kDqKeys / 16; ++kk)
-                Wg<T>::template ss<kDqCols, 1, 1>(dq, ad + ((kk * 16 * 128) >> 4),
-                                                  bd + ((kk * 16 * 128) >> 4), kk > 0);
+#pragma unroll
+                for (int y = 0; y < kB16; ++y)
+                  Wg<T>::template ss<16, 1, 1>(*reinterpret_cast<float(*)[8]>(dq + 8 * y),
+                                               ad + ((kk * 16 * 128) >> 4),
+                                               bn + ((y * kBN * 32 + kk * 16 * 32) >> 4), kk > 0);
+            } else {
+              const uint64_t bd = opaque(smem_desc(
+                  sK + C::kDqColBlk * c * (kBN * 128) + dq_key0 * 128, kBN * 128, 1024));
+              if constexpr (kB16 > 0) {
+                float(&dq64)[32] = *reinterpret_cast<float(*)[32]>(dq);
+                float(&dq16)[8] = *reinterpret_cast<float(*)[8]>(dq + 32);
+                const uint64_t bn = opaque(
+                    smem_desc(sK + C::box16(kBN) + dq_key0 * 32, kBN * 32, 256, kSwizzle32B));
+#pragma unroll
+                for (int kk = 0; kk < C::kDqKeys / 16; ++kk) {
+                  Wg<T>::template ss<64, 1, 1>(dq64, ad + ((kk * 16 * 128) >> 4),
+                                               bd + ((kk * 16 * 128) >> 4), kk > 0);
+                  Wg<T>::template ss<16, 1, 1>(dq16, ad + ((kk * 16 * 128) >> 4),
+                                               bn + ((kk * 16 * 32) >> 4), kk > 0);
+                }
+              } else {
+#pragma unroll
+                for (int kk = 0; kk < C::kDqKeys / 16; ++kk)
+                  Wg<T>::template ss<kDqCols, 1, 1>(dq, ad + ((kk * 16 * 128) >> 4),
+                                                    bd + ((kk * 16 * 128) >> 4), kk > 0);
+              }
             }
           }
           wgmma_commit();
@@ -1045,10 +1099,11 @@ int launch(const BwdParams& p, CUtensorMapDataType type, cudaStream_t st) {
   // every map is encoded before anything is launched: a refusal touches nothing; the
   // 16-column boxes' maps stay zeros where a head has none (the kernel never reads them)
   CUtensorMap tq{}, tk{}, tv{}, tdo{}, nq{}, nk{}, nv{}, ndo{};
-  if (!encode(fn, &tq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, BM) ||
-      !encode(fn, &tdo, p.dout, type, HD, p.Sq, p.H, p.B, p.do_ss, p.do_sh, p.do_sb, BM) ||
-      !encode(fn, &tk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
-      !encode(fn, &tv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN))
+  if (Cfg<HD>::kBoxes64 > 0 &&
+      (!encode(fn, &tq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, BM) ||
+       !encode(fn, &tdo, p.dout, type, HD, p.Sq, p.H, p.B, p.do_ss, p.do_sh, p.do_sb, BM) ||
+       !encode(fn, &tk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
+       !encode(fn, &tv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN)))
     return -3;
   constexpr int n16 = kNarrowCols;
   constexpr CUtensorMapSwizzle sw32 = CU_TENSOR_MAP_SWIZZLE_32B;
@@ -1108,11 +1163,15 @@ int launch(const BwdParams& p, CUtensorMapDataType type, cudaStream_t st) {
 
 int launch_bwd_sm90(const BwdParams& p, int hd, int dtype, cudaStream_t st) {
   if (dtype == 1) {
+    if (hd == 16) return launch<__nv_bfloat16, 16>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+    if (hd == 32) return launch<__nv_bfloat16, 32>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 64) return launch<__nv_bfloat16, 64>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 80) return launch<__nv_bfloat16, 80>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 128) return launch<__nv_bfloat16, 128>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 256) return launch<__nv_bfloat16, 256>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   } else if (dtype == 2) {
+    if (hd == 16) return launch<__half, 16>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
+    if (hd == 32) return launch<__half, 32>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 64) return launch<__half, 64>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 80) return launch<__half, 80>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 128) return launch<__half, 128>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);

@@ -70,7 +70,6 @@
 #include <type_traits>
 
 #include "flash_attention.cuh"
-#include "flash_mma.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -735,11 +734,16 @@ bool encode_f32(EncodeTiled fn, Maps& maps, int m, const void* ptr, int hd, int 
                                        sh, sb, rows, 16, CU_TENSOR_MAP_SWIZZLE_64B, 4);
 }
 
+// Raises the kernel's dynamic shared-memory limit once (when it needs more than the
+// default 48 KB), then launches it.
 template <typename P>
 cudaError_t launch(void (*kern)(Maps, P), int smem, bool& raised, dim3 grid, const Maps& maps,
                    const P& p, cudaStream_t st) {
-  cudaError_t e = flash::allow_smem(kern, smem, raised);
-  if (e != cudaSuccess) return e;
+  if (smem > 48 * 1024 && !raised) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    raised = true;
+  }
   kern<<<grid, kThreads, smem, st>>>(maps, p);
   return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Fused attention forward for Hopper (sm_90a): TMA + wgmma, warp-specialised.
-// 16-bit inputs (bf16, fp16) at head_dim 64, 80, 128 and 256; plain C++ launcher called
-// from repro_flash_attention_fwd (flash_attention.cu) through flash::launch_sm90.
+// 16-bit inputs (bf16, fp16) at head_dim 16, 32, 64, 80, 128 and 256; plain C++
+// launcher called from repro_flash_attention_fwd (flash_attention.cu) through
+// flash::launch_sm90.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel,
 // launched by _flash_fwd_kernel_call) for those shapes, with its contract as
@@ -14,10 +15,10 @@
 // Bound on this card: operations.  At the prefill shape (S = 2048, hd = 128) the
 // two products do ~S*hd/2 flops per byte of q/k/v/o, far above the ~295 flop/byte
 // ridge; the tensor cores are the limit, and only wgmma reaches their full rate.
-// What the mma.sync kernel ran into (PERF.md): every warp loaded its
-// fragments from shared memory and issued its products in order, so it was bound
-// by latency inside the warp at ~3,050 cycles per 64x64 tile against ~1,100 for
-// the tensor cores.  What this design does about it (FlashAttention-3's shape):
+// (A warp that loads its own fragments from shared memory and issues mma.sync in
+// order is bound by latency inside the warp: ~3,050 cycles per 64x64 tile against
+// ~1,100 for the tensor cores, PERF.md.)  What this design does (FlashAttention-3's
+// shape):
 //   * a persistent grid, one block per SM, each walking work tiles of (128-row q
 //     tile, q head, batch), latest q tiles first so the heaviest go out first,
 //     and with one query head a KV head, groups of neighbouring q tiles of one head
@@ -65,7 +66,7 @@
 // S_i / P_{i-1} V_{i-1} overlap, setmaxnreg 40/232, two consumer warpgroups).  What
 // differs is the row: 80 16-bit values are 160 bytes, wider than the 128-byte swizzle
 // row the other head_dims' 64-column boxes fill, and 80 is not a multiple of 64.  So
-// a tile's head is cut into boxes of two kinds (Cfg<80>::kBoxes64 / kBoxes16):
+// a tile's head is cut into boxes of two kinds (Cfg<80>::kBoxes64 / kBoxesN):
 //   * columns 0-63 one 64-column box under the 128-byte swizzle, as at 64 and 128;
 //     columns 64-79 one 16-column box (32-byte rows) under the 32-byte swizzle,
 //     each box with its own tensor map (tm_* / tn_*) and wgmma descriptors of its
@@ -97,6 +98,27 @@
 // Not done yet (ROADMAP K2-fast): wider kv tiles for head_dim 64.
 // Letting the two consumer warpgroups take strict turns at the tensor cores
 // (named barriers) was measured and gained nothing at the prefill shape either.
+// Head_dim 32 and 16 (any 16-bit model at those head_dims; a reduced model's 32) keep
+// head_dim 128's shape (two Q buffers, 128-key tiles, a two-stage K/V ring, the S_i /
+// P_{i-1} V_{i-1} overlap, setmaxnreg 40/232); their 64- or 32-byte rows are narrower
+// than the 128-byte swizzle atom, so kBoxes64 = 0 and a tile's head is one narrow box:
+//   * at 32, 32 columns under the 64-byte swizzle: S = Q K^T two k16 steps in the box
+//     (the first starts S), O += P V one m64n32k16 a k16 step;
+//   * at 16, 16 columns under the 32-byte swizzle, as head_dim 80's last columns: S one
+//     k16 step, O += P V one m64n16k16 a k16 step (as two 16-column boxes at 32, 4-5 %
+//     slower there: sixteen small products a tile instead of eight);
+//   * the products are short and the exponentials are not: one a visible pair at 16 a
+//     clock an SM is ~2x the products' time at peak at 32 and ~4x at 16 (the floor
+//     chip_smoke.py and tools/flash_bench.py give beside each time);
+//   * O takes 16 (8) registers a thread, S 64, P 32.
+// A steady kv step takes ~2,550-2,900 SM cycles against the MUFU's 1,024 for its
+// exponentials: the softmax ~1,300-1,650 of them, the products' issue ~400-700
+// (tools/flash_fwd_phases.py --shape small, PERF.md).  tools/flash_small_variants.py
+// times this layout beside patched copies of it; all of these were slower or mixed:
+// the warpgroups taking turns at the products or at the softmax (35 % slower: a
+// softmax alone is latency-bound inside its warps), a third consumer warpgroup (28 %
+// slower), a share of the exponentials on the FMA pipe, four stages, 192-key tiles,
+// the row max as a tree.
 // An mbarrier wait that never completes traps after 4 s instead of hanging the card
 // (head_dim 80's turns wait on named barriers, which have no such limit).
 // The PTX helpers, wgmma instructions and the tensor-map encoder are sm90.cuh's,
@@ -121,11 +143,12 @@ constexpr int kConsumers = 2;     // consumer warpgroups of 64 query rows each
 // the register file (head_dim 256: see the note at the top), the K/V ring's stages,
 // whether the consumer warpgroups take turns at the tensor cores, and how a tile's
 // head is cut into TMA boxes: 64-column boxes under the 128-byte swizzle (kBoxes64),
-// then 16-column boxes under the 32-byte swizzle (kBoxes16: head_dim 80, see the
-// note).
+// then narrow boxes (kBoxesN of kNarrow columns: 16 under the 32-byte swizzle at
+// head_dim 80 and 16, 32 under the 64-byte one at 32; see the note).
 template <int HD>
 struct Cfg {
   static constexpr bool kWide = HD == 256;
+  static constexpr bool kSmall = HD <= 32;     // head_dim 32 and 16: narrow boxes only
   static constexpr int kBM = 64 * kConsumers;            // query rows a block
   static constexpr int kThreads = 128 * (1 + kConsumers);  // and the producer
   static constexpr int kBN = kWide ? 64 : 128;
@@ -135,10 +158,15 @@ struct Cfg {
   static constexpr int kStages = HD == 80 ? 3 : 2;   // of the K/V ring
   static constexpr bool kTurns = HD == 80;
   static constexpr int kBoxes64 = HD / kBoxCols;
-  static constexpr int kBoxes16 = HD % kBoxCols / kNarrowCols;
+  // then the narrow boxes: 16 columns under the 32-byte swizzle (head_dim 80's last
+  // columns, 16's whole head), or head_dim 32's one box of 32 under the 64-byte one
+  static constexpr int kNarrow = HD == 32 ? 32 : kNarrowCols;
+  static constexpr int kNarrowBytes = 2 * kNarrow;       // a row of one
+  static constexpr int kSwizzleN = kNarrow == 32 ? kSwizzle64B : kSwizzle32B;
+  static constexpr int kBoxesN = HD % kBoxCols / kNarrow;
   static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= 65536,
                 "register file");
-  static_assert(kBoxes64 * kBoxCols + kBoxes16 * kNarrowCols == HD, "boxes cover the head");
+  static_assert(kBoxes64 * kBoxCols + kBoxesN * kNarrow == HD, "boxes cover the head");
 };
 
 // ----------------------------------------------------------------------- kernel
@@ -147,10 +175,10 @@ template <int HD>
 struct Smem {
   static constexpr int kBN = Cfg<HD>::kBN;
   // byte offsets of a tile's boxes: the 64-column boxes (rows x 128 B each), then
-  // the 16-column ones (rows x 32 B); all on 1024-byte boundaries at these row counts
+  // the narrow ones (rows x 32 or 64 B); all on 1024-byte boundaries at these row counts
   __host__ __device__ static constexpr uint32_t box64(int rows, int x) { return x * rows * 128; }
-  __host__ __device__ static constexpr uint32_t box16(int rows, int y) {
-    return Cfg<HD>::kBoxes64 * rows * 128 + y * rows * 32;
+  __host__ __device__ static constexpr uint32_t boxN(int rows, int y) {
+    return Cfg<HD>::kBoxes64 * rows * 128 + y * rows * Cfg<HD>::kNarrowBytes;
   }
   static constexpr int kBM = Cfg<HD>::kBM;
   static constexpr int kQBytes = kBM * HD * 2;
@@ -166,8 +194,8 @@ struct Smem {
   static_assert(kAlloc <= 232448, "shared memory a block can use");
 };
 
-// tm_*: the maps of the 64-column boxes; tn_*: those of the 16-column boxes (only
-// where the head has them: head_dim 80)
+// tm_*: the maps of the 64-column boxes; tn_*: those of the narrow boxes (only
+// where the head has them: head_dim 80, 32 and 16)
 template <typename T, int HD>
 __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -179,7 +207,7 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
   using S = Smem<HD>;
   using C = Cfg<HD>;
   constexpr int kBN = C::kBN, kBM = C::kBM;
-  constexpr int kB64 = C::kBoxes64, kB16 = C::kBoxes16;
+  constexpr int kB64 = C::kBoxes64, kNB = C::kBoxesN, kNR = C::kNarrowBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // every tile starts on a 1024-byte boundary: the swizzle pattern's period
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -267,18 +295,18 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
         asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m))
                      : "memory");
       };
-      prefetch(&tm_k), prefetch(&tm_v);
-      if constexpr (kB16 > 0) prefetch(&tn_k), prefetch(&tn_v);
+      if constexpr (kB64 > 0) prefetch(&tm_k), prefetch(&tm_v);
+      if constexpr (kNB > 0) prefetch(&tn_k), prefetch(&tn_v);
       // one tile of `rows` rows from row r0 of (head h, batch b) into dst: its
-      // 64-column boxes, then its 16-column ones, all completing on barrier `full`
+      // 64-column boxes, then its narrow ones, all completing on barrier `full`
       auto load = [&](uint32_t dst, const CUtensorMap* wide, const CUtensorMap* narrow,
                       uint32_t full, int rows, int r0, int h, int b) {
 #pragma unroll
         for (int x = 0; x < kB64; ++x)
           tma_load_4d(dst + S::box64(rows, x), wide, full, x * kBoxCols, r0, h, b);
 #pragma unroll
-        for (int y = 0; y < kB16; ++y)
-          tma_load_4d(dst + S::box16(rows, y), narrow, full, kB64 * kBoxCols + y * kNarrowCols,
+        for (int y = 0; y < kNB; ++y)
+          tma_load_4d(dst + S::boxN(rows, y), narrow, full, kB64 * kBoxCols + y * C::kNarrow,
                       r0, h, b);
       };
       // j: this block's work tiles so far; g: K/V tiles so far (the ring's
@@ -345,23 +373,30 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
 
     // S = Q K^T for the tile in stage s: 64 rows x kBN keys, K-major A and B,
     // 32 bytes a k16 step: four steps in each 64-column box, then one in each
-    // 16-column box (its whole 32-byte row; 8-row groups 256 bytes apart)
+    // narrow box (32 bytes of its row a step; 8-row groups 8 rows apart); with no
+    // 64-column box (head_dim 32, 16) the first narrow step starts S
     auto issue_qk = [&](int s) {
-      const uint64_t qd = opaque(smem_desc(q_tile + c * 64 * 128, 16, 1024));
-      const uint64_t kd = opaque(smem_desc(sK(s), 16, 1024));
+      if constexpr (kB64 > 0) {
+        const uint64_t qd = opaque(smem_desc(q_tile + c * 64 * 128, 16, 1024));
+        const uint64_t kd = opaque(smem_desc(sK(s), 16, 1024));
 #pragma unroll
-      for (int kk = 0; kk < 4 * kB64; ++kk) {
-        const uint32_t box = (kk >> 2) * 128, in = (kk & 3) * 32;  // bytes; >> 4 below
-        Wg<T>::template ss<kBN>(sc, qd + ((box * kBM + in) >> 4),
-                                kd + ((box * kBN + in) >> 4), kk > 0);
+        for (int kk = 0; kk < 4 * kB64; ++kk) {
+          const uint32_t box = (kk >> 2) * 128, in = (kk & 3) * 32;  // bytes; >> 4 below
+          Wg<T>::template ss<kBN>(sc, qd + ((box * kBM + in) >> 4),
+                                  kd + ((box * kBN + in) >> 4), kk > 0);
+        }
       }
-      if constexpr (kB16 > 0) {
-        const uint64_t qd =
-            opaque(smem_desc(q_tile + S::box16(kBM, 0) + c * 64 * 32, 16, 256, kSwizzle32B));
-        const uint64_t kd = opaque(smem_desc(sK(s) + S::box16(kBN, 0), 16, 256, kSwizzle32B));
+      if constexpr (kNB > 0) {
+        const uint64_t qd = opaque(
+            smem_desc(q_tile + S::boxN(kBM, 0) + c * 64 * kNR, 16, 8 * kNR, C::kSwizzleN));
+        const uint64_t kd = opaque(smem_desc(sK(s) + S::boxN(kBN, 0), 16, 8 * kNR, C::kSwizzleN));
 #pragma unroll
-        for (int y = 0; y < kB16; ++y)
-          Wg<T>::template ss<kBN>(sc, qd + ((y * kBM * 32) >> 4), kd + ((y * kBN * 32) >> 4), 1);
+        for (int y = 0; y < kNB; ++y)
+#pragma unroll
+          for (int ks = 0; ks < C::kNarrow / 16; ++ks)  // 32 bytes a k16 step
+            Wg<T>::template ss<kBN>(sc, qd + ((y * kBM * kNR + ks * 32) >> 4),
+                                    kd + ((y * kBN * kNR + ks * 32) >> 4),
+                                    kB64 > 0 || y > 0 || ks > 0);
       }
       wgmma_commit();
     };
@@ -369,32 +404,45 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
     // groups (SBO 1024), the second 64 columns of a 128-wide slice the next box
     // (LBO); head_dim 256 as two 128-wide slices, each its own product into its
     // half of O (columns 128h.. are O's registers 64h..); head_dim 80 as the
-    // note at the top says
+    // note at the top says; head_dim 32 and 16 as one m64n{32,16}k16 a k16 step over
+    // each narrow box of V (columns kNarrow y.. are O's registers kNarrow / 2 y..; 8-row
+    // groups 8 rows apart)
     auto issue_pv = [&](int s) {
-      const uint64_t vd = opaque(smem_desc(sV(s), kBN * 128, 1024));
-      if constexpr (HD == 80) {
-        // columns 0-63 (O's registers 0-31) from the 64-column box, 64-79
-        // (registers 32-39) from the 16-column box
-        const uint64_t vn =
-            opaque(smem_desc(sV(s) + S::box16(kBN, 0), kBN * 32, 256, kSwizzle32B));
-#pragma unroll
-        for (int kk = 0; kk < kBN / 16; ++kk) {
-          Wg<T>::template rs<64>(*reinterpret_cast<float(*)[32]>(o), pa[kk],
-                                 vd + ((kk * 16 * 128) >> 4), 1);
-          Wg<T>::template rs<16>(*reinterpret_cast<float(*)[8]>(o + 32), pa[kk],
-                                 vn + ((kk * 16 * 32) >> 4), 1);
-        }
-      } else if constexpr (HD <= 128) {
+      if constexpr (C::kSmall) {
+        constexpr int kN = C::kNarrow;
+        const uint64_t vn = opaque(smem_desc(sV(s), kBN * kNR, 8 * kNR, C::kSwizzleN));
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk)
-          Wg<T>::template rs<HD>(o, pa[kk], vd + ((kk * 16 * 128) >> 4), 1);
-      } else {
 #pragma unroll
-        for (int h = 0; h < HD / 128; ++h)
+          for (int y = 0; y < kNB; ++y)
+            Wg<T>::template rs<kN>(*reinterpret_cast<float(*)[kN / 2]>(o + kN / 2 * y), pa[kk],
+                                   vn + ((y * kBN * kNR + kk * 16 * kNR) >> 4), 1);
+      } else {
+        const uint64_t vd = opaque(smem_desc(sV(s), kBN * 128, 1024));
+        if constexpr (HD == 80) {
+          // columns 0-63 (O's registers 0-31) from the 64-column box, 64-79
+          // (registers 32-39) from the 16-column box
+          const uint64_t vn =
+              opaque(smem_desc(sV(s) + S::boxN(kBN, 0), kBN * 32, 256, kSwizzle32B));
+#pragma unroll
+          for (int kk = 0; kk < kBN / 16; ++kk) {
+            Wg<T>::template rs<64>(*reinterpret_cast<float(*)[32]>(o), pa[kk],
+                                   vd + ((kk * 16 * 128) >> 4), 1);
+            Wg<T>::template rs<16>(*reinterpret_cast<float(*)[8]>(o + 32), pa[kk],
+                                   vn + ((kk * 16 * 32) >> 4), 1);
+          }
+        } else if constexpr (HD <= 128) {
 #pragma unroll
           for (int kk = 0; kk < kBN / 16; ++kk)
-            Wg<T>::template rs<128>(*reinterpret_cast<float(*)[64]>(o + 64 * h), pa[kk],
-                                    vd + ((h * 2 * kBN * 128 + kk * 16 * 128) >> 4), 1);
+            Wg<T>::template rs<HD>(o, pa[kk], vd + ((kk * 16 * 128) >> 4), 1);
+        } else {
+#pragma unroll
+          for (int h = 0; h < HD / 128; ++h)
+#pragma unroll
+            for (int kk = 0; kk < kBN / 16; ++kk)
+              Wg<T>::template rs<128>(*reinterpret_cast<float(*)[64]>(o + 64 * h), pa[kk],
+                                      vd + ((h * 2 * kBN * 128 + kk * 16 * 128) >> 4), 1);
+        }
       }
       wgmma_commit();
     };
@@ -579,20 +627,22 @@ template <typename T, int HD>
 int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -4;
-  // the 64-column boxes' maps and the 16-column boxes' (zeros where a head has none
+  // the 64-column boxes' maps and the narrow boxes' (zeros where a head has none
   // of that kind: the kernel never reads them)
   CUtensorMap tq{}, tk{}, tv{}, nq{}, nk{}, nv{};
   constexpr int kBN = Cfg<HD>::kBN, kBM = Cfg<HD>::kBM;
-  if (!encode(fn, &tq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM) ||
-      !encode(fn, &tk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
-      !encode(fn, &tv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN))
+  if (Cfg<HD>::kBoxes64 > 0 &&
+      (!encode(fn, &tq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM) ||
+       !encode(fn, &tk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
+       !encode(fn, &tv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN)))
     return -3;
-  constexpr int n16 = kNarrowCols;
-  constexpr CUtensorMapSwizzle sw32 = CU_TENSOR_MAP_SWIZZLE_32B;
-  if (Cfg<HD>::kBoxes16 > 0 &&
-      (!encode(fn, &nq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM, n16, sw32) ||
-       !encode(fn, &nk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN, n16, sw32) ||
-       !encode(fn, &nv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN, n16, sw32)))
+  constexpr int nc = Cfg<HD>::kNarrow;
+  constexpr CUtensorMapSwizzle sw =
+      nc == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  if (Cfg<HD>::kBoxesN > 0 &&
+      (!encode(fn, &nq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM, nc, sw) ||
+       !encode(fn, &nk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN, nc, sw) ||
+       !encode(fn, &nv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN, nc, sw)))
     return -3;
   auto kern = flash_fwd_sm90_kernel<T, HD>;
   constexpr int smem = Smem<HD>::kAlloc;
@@ -615,11 +665,15 @@ int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
 
 int launch_sm90(const Params& p, int hd, int dtype, cudaStream_t st) {
   if (dtype == 1) {
+    if (hd == 16) return launch<__nv_bfloat16, 16>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+    if (hd == 32) return launch<__nv_bfloat16, 32>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 64) return launch<__nv_bfloat16, 64>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 80) return launch<__nv_bfloat16, 80>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 128) return launch<__nv_bfloat16, 128>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 256) return launch<__nv_bfloat16, 256>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   } else if (dtype == 2) {
+    if (hd == 16) return launch<__half, 16>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
+    if (hd == 32) return launch<__half, 32>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 64) return launch<__half, 64>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 80) return launch<__half, 80>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 128) return launch<__half, 128>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);

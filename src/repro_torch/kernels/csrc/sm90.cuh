@@ -9,10 +9,12 @@
 //
 // What is here: shared-memory addresses, mbarriers (every wait traps after 4 s
 // instead of hanging the card), 4-D TMA tile loads and a 1-D bulk copy, the wgmma
-// descriptor (128-byte swizzle, or 32-byte swizzle for 16-column boxes: head_dim
-// 80), the wgmma instructions (m64nNk16, fp32 accumulator; A and B from shared
-// memory, either operand K-major or MN-major; or A from registers with B MN-major)
-// and the host's tensor-map encoder, looked up through the runtime (no -lcuda).
+// descriptor (128-byte swizzle; 64-byte for head_dim 32's 32-column box; 32-byte for
+// 16-column boxes: head_dim 80's last 16 columns, the whole head at 16 and in the
+// backward at 32), the wgmma instructions
+// (m64nNk16, fp32 accumulator; A and B from shared memory, either operand K-major or
+// MN-major; or A from registers with B MN-major), the MUFU's base-2 exponential and
+// the host's tensor-map encoder, looked up through the runtime (no -lcuda).
 
 #pragma once
 
@@ -28,7 +30,7 @@ namespace {
 constexpr int kBoxCols = 64;      // 128 bytes of 16-bit values: one swizzle row
 constexpr int kNarrowCols = 16;   // 32 bytes: one row of the 32-byte swizzle
 // wgmma descriptors' layout types: the swizzle the tile was stored with
-constexpr int kSwizzle128B = 1, kSwizzle32B = 3;
+constexpr int kSwizzle128B = 1, kSwizzle64B = 2, kSwizzle32B = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------------ PTX helpers
@@ -154,7 +156,7 @@ __device__ __forceinline__ float ex2(float x) {
 // ------------------------------------------------------------ wgmma instructions
 // m64nNk16, fp32 accumulator d (N/2 registers a thread).  SS (N = 16, 32, 64, 128):
 // A and B from shared memory, TA / TB = 1 where that operand is MN-major
-// (transposed), 0 where it is K-major.  RS (N = 16, 64, 128): A from registers, B
+// (transposed), 0 where it is K-major.  RS (N = 16, 32, 64, 128): A from registers, B
 // from shared memory MN-major.
 
 #define D8(i)                                                                            \
@@ -219,6 +221,14 @@ __device__ __forceinline__ float ex2(float x) {
                  : D8(0)                                                                    \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));         \
   }                                                                                         \
+  __device__ __forceinline__ void rs_n32_##TAG(float (&d)[16], const uint32_t (&a)[4],      \
+                                               uint64_t db, int acc) {                      \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                             \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " " R16            \
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                          \
+                 : D16                                                                      \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));         \
+  }                                                                                         \
   __device__ __forceinline__ void rs_n64_##TAG(float (&d)[32], const uint32_t (&a)[4],      \
                                                uint64_t db, int acc) {                      \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                             \
@@ -267,6 +277,7 @@ template <> struct Wg<__nv_bfloat16> {
   static __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                             int acc) {
     if constexpr (N == 16) rs_n16_bf16(d, a, db, acc);
+    else if constexpr (N == 32) rs_n32_bf16(d, a, db, acc);
     else if constexpr (N == 64) rs_n64_bf16(d, a, db, acc);
     else rs_n128_bf16(d, a, db, acc);
   }
@@ -288,6 +299,7 @@ template <> struct Wg<__half> {
   static __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                             int acc) {
     if constexpr (N == 16) rs_n16_f16(d, a, db, acc);
+    else if constexpr (N == 32) rs_n32_f16(d, a, db, acc);
     else if constexpr (N == 64) rs_n64_f16(d, a, db, acc);
     else rs_n128_f16(d, a, db, acc);
   }
@@ -321,7 +333,8 @@ EncodeTiled encode_tiled() {
 // A 4-D map over (hd, seq, heads, batch) of a tensor of `elem` bytes an element
 // (16-bit unless told otherwise) with element strides (ss, sh, sb), boxes of `cols`
 // columns x `rows` rows of one head: 64 16-bit columns under the 128-byte swizzle, or
-// 16 (head_dim 80's last box) under the 32-byte one; in float32 (flash_attention_fp32.cu)
+// 16 (head_dim 80's last box, every box at 32 and 16) under the 32-byte one; in float32
+// (flash_attention_fp32.cu)
 // 32 columns under the 128-byte swizzle or 16 under the 64-byte one.  Rows past `seq`
 // read as zeros.
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int hd,

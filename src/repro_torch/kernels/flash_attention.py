@@ -5,18 +5,17 @@ version.  A call that needs gradients goes through :class:`FlashAttention`, a
 ``torch.autograd.Function``: on the card its forward launches the forward kernel
 with the per-row log-sum-exp ``lse`` written beside the output, and its backward
 launches the backward kernels (``csrc/flash_attention_bwd_sm90.cu``: D, then one
-pass for dk, dv and dq, at head_dim 256 one for dk and dv and one for dq; or
-``csrc/flash_attention_bwd.cu``: D, then dk/dv, then dq; or, in float32,
-``csrc/flash_attention_fp32.cu``: dq with D, then dk/dv); on the CPU both are the
-plain versions of ``ref``.  A call without
-gradients (serving) launches the forward kernel alone and writes no ``lse``.
+pass for dk, dv and dq, at head_dim 256 one for dk and dv and one for dq; or, in
+float32, ``csrc/flash_attention_fp32.cu``: dq with D, then dk/dv); on the CPU both
+are the plain versions of ``ref``.  A call without gradients (serving) launches the
+forward kernel alone and writes no ``lse``.
 
 Which kernel a CUDA call launches is the library's own rule (``variant``,
-``bwd_variant``): 16-bit inputs take the TMA + wgmma kernels at head_dim 64, 80,
-128 and 256, forward and backward, the mma.sync kernels at 16 and 32; float32, at
-every head_dim, the 3xTF32 kernels (``tf32x3``: the tensor cores with each operand
-split into TF32 high and low parts, float32's accuracy).  A head_dim compiled into
-neither direction raises.  A variant that cannot run (a tensor map that cannot be encoded, a refused
+``bwd_variant``): 16-bit inputs take the TMA + wgmma kernels (``sm90_wgmma``) at
+every compiled head_dim, forward and backward; float32, at every head_dim, the
+3xTF32 kernels (``tf32x3``: the tensor cores with each operand split into TF32 high
+and low parts, float32's accuracy).  A head_dim compiled into neither direction
+raises.  A variant that cannot run (a tensor map that cannot be encoded, a refused
 launch) raises; no other variant stands in for it.
 """
 
@@ -35,7 +34,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_reference,
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 #: the C interface's codes 0, 1, 2, forward and backward
-VARIANTS = ("tf32x3", "mma_sync", "sm90_wgmma")
+VARIANTS = ("tf32x3", "sm90_wgmma")
 #: the wgmma backward pads its per-row scratch to a multiple of this many query rows
 #: (``kSqPad`` of ``csrc/flash_attention.cuh``)
 BWD_SQ_PAD = 128
@@ -89,9 +88,9 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> str:
 
 
 def _check_layout(name: str, t: torch.Tensor) -> None:
-    """Every kernel loads whole rows by 16-byte copies (TMA tiles, bulk copies,
-    cp.async): the head_dim stride must be 1 and each row start on a 16-byte
-    boundary, in every element type."""
+    """Every kernel loads whole rows by 16-byte copies (TMA tiles, bulk copies): the
+    head_dim stride must be 1 and each row start on a 16-byte boundary, in every
+    element type."""
     if t.stride(-1) != 1:
         raise ValueError(f"flash_attention: {name}'s head_dim stride must be 1")
     if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:-1]):
@@ -195,7 +194,7 @@ def _bwd_scratch(kind: str, q: torch.Tensor):
     wgmma kernel takes D and lse * log2(e), each (B, H, Sq padded to BWD_SQ_PAD), and
     (but at head_dim 256, whose dq pass writes dq itself) a dq accumulator of as many
     floats as (B, H, padded Sq, hd), in the kernel's own block layout (its prep kernel
-    writes them); the others take D as (B, H, Sq) and no accumulator."""
+    writes them); the tf32x3 passes take D as (B, H, Sq) and no accumulator."""
     B, Sq, H, hd = q.shape
     if kind != "sm90_wgmma":
         return torch.empty((B, H, Sq), dtype=torch.float32, device=q.device), None

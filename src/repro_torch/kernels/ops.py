@@ -36,13 +36,13 @@ def launch_counts() -> dict[str, int]:
 
 def flash_launches_by_variant() -> dict[str, int]:
     """Flash-attention forward launches per kernel variant (``tf32x3``,
-    ``mma_sync``, ``sm90_wgmma``) since the last :func:`reset_launch_counts`."""
+    ``sm90_wgmma``) since the last :func:`reset_launch_counts`."""
     return dict(_flash_mod.launches_by_variant)
 
 
 def flash_bwd_launches_by_variant() -> dict[str, int]:
-    """Flash-attention backward launches per variant (``tf32x3``, ``mma_sync``,
-    ``sm90_wgmma``) since the last :func:`reset_launch_counts`."""
+    """Flash-attention backward launches per variant (``tf32x3``, ``sm90_wgmma``)
+    since the last :func:`reset_launch_counts`."""
     return dict(_flash_mod.bwd_launches_by_variant)
 
 

@@ -185,10 +185,8 @@ def test_ops_on_cpu_take_plain_versions_and_launch_nothing():
     (ops.flash_attention(q, k, v).sum() + ops.rmsnorm(x, w).sum()).backward()
     assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_bwd": 0,
                                    "flash_attention": 0, "flash_attention_bwd": 0}
-    assert ops.flash_launches_by_variant() == {"tf32x3": 0, "mma_sync": 0,
-                                               "sm90_wgmma": 0}
-    assert ops.flash_bwd_launches_by_variant() == {"tf32x3": 0, "mma_sync": 0,
-                                                   "sm90_wgmma": 0}
+    assert ops.flash_launches_by_variant() == {"tf32x3": 0, "sm90_wgmma": 0}
+    assert ops.flash_bwd_launches_by_variant() == {"tf32x3": 0, "sm90_wgmma": 0}
     assert flash_mod.launches == 0 and rmsnorm_mod.launches == 0
 
 
@@ -570,19 +568,19 @@ def test_backward_dq_pass_head_dim_matches_the_c_header():
     header = (CSRC / "flash_attention.cuh").read_text()
     hd = re.search(r"constexpr int kDqPassHeadDim = (\d+);", header)
     assert hd and int(hd.group(1)) == flash_mod.BWD_DQ_PASS_HEAD_DIM
-    assert flash_mod.BWD_DQ_PASS_HEAD_DIM in _c_int_list("flash_attention.cuh", "kSm90BwdHeadDims")
+    assert flash_mod.BWD_DQ_PASS_HEAD_DIM in _c_int_list("flash_attention.cuh", "kBwdHeadDims")
     assert "static constexpr bool kWide = HD == kDqPassHeadDim;" in \
         (CSRC / "flash_attention_bwd_sm90.cu").read_text()
 
 
-@pytest.mark.parametrize("hd", (64, 80, 128, 256))
+@pytest.mark.parametrize("hd", (16, 32, 64, 80, 128, 256))
 @pytest.mark.parametrize("kind", flash_mod.VARIANTS)
 def test_backward_scratch_shapes(kind, hd):
     """delta and dq_acc as ``flash::BwdParams`` states them: (B, H, Sq) and none for
-    the tf32x3 and mma.sync kernels; D and lse * log2(e) over a padded Sq, and a
-    (B, H, padded Sq, hd) accumulator, for the wgmma kernel, at each head_dim it takes
-    (at 80 a 64 x 64 and a 64 x 16 block for each 64 rows: 64 * 80 floats), but none
-    at 256, whose dq pass writes dq itself."""
+    the tf32x3 kernels; D and lse * log2(e) over a padded Sq, and a (B, H, padded Sq,
+    hd) accumulator, for the wgmma kernel, at each head_dim it takes (at 80 a 64 x 64
+    and a 64 x 16 block for each 64 rows: 64 * 80 floats; at 32 and 16 one 64 x hd
+    block), but none at 256, whose dq pass writes dq itself."""
     q = torch.zeros(2, 191, 28, hd, dtype=torch.bfloat16)
     delta, dq_acc = flash_mod._bwd_scratch(kind, q)
     assert delta.dtype == torch.float32 and delta.is_contiguous()
@@ -612,29 +610,28 @@ def _compiled_head_dims(source: str, function: str, pattern: str) -> set:
 
 def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
     """``flash::variant_for`` in ``flash_attention.cuh``, read from the source: 16-bit
-    head_dim 256 takes the TMA + wgmma kernel (kSm90Wgmma) forward and backward, and
-    so does 16-bit head_dim 80; 16-bit head_dim 16 and 32 the mma.sync kernels; fp32
-    the 3xTF32 kernels (flash_attention_fp32.cu) both ways at every head_dim; every head_dim the rule sends to a kernel is
-    compiled into that kernel's dispatch, forward and backward (so the mma.sync
-    backward has no instance at 80 or 256), and no head_dim 80 call is refused; no
-    library is loaded."""
+    inputs take the TMA + wgmma kernels (kSm90Wgmma) at every compiled head_dim, 256,
+    80, 32 and 16 among them, forward and backward; fp32 the 3xTF32 kernels
+    (flash_attention_fp32.cu) both ways at every head_dim; every head_dim the rule
+    sends to a kernel is compiled into that kernel's dispatch, forward and backward
+    (``launch_sm90`` and ``launch_bwd_sm90`` compile 16 and 32), and no head_dim 80
+    call is refused; no library is loaded."""
     header = (CSRC / "flash_attention.cuh").read_text()
     enum = dict((name, int(code)) for name, code in
                 re.findall(r"(k\w+) = (\d+)", re.search(r"enum Variant \{([^}]*)\}",
                                                         header).group(1)))
-    assert [flash_mod.VARIANTS[enum[k]] for k in ("kTf32x3", "kMmaSync", "kSm90Wgmma")] == \
-        ["tf32x3", "mma_sync", "sm90_wgmma"]
+    assert enum == {"kTf32x3": 0, "kSm90Wgmma": 1}
+    assert [flash_mod.VARIANTS[enum[k]] for k in ("kTf32x3", "kSm90Wgmma")] == \
+        ["tf32x3", "sm90_wgmma"]
     body = re.search(r"inline int variant_for\(int hd, int dtype, bool backward\) \{(.*?)\n\}",
                      header, re.S).group(1)
     assert ("if (!(backward ? one_of(kBwdHeadDims, hd) : one_of(kHeadDims, hd))) return -1;"
             in body)
     assert "if (dtype == 0) return kTf32x3;" in body
-    assert ("backward ? one_of(kSm90BwdHeadDims, hd) : one_of(kSm90HeadDims, hd)" in body
-            and "return wgmma ? kSm90Wgmma : kMmaSync;" in body)
+    assert "if (dtype != 1 && dtype != 2) return -1;" in body
+    assert "return kSm90Wgmma;" in body
     head_dims = {False: _c_int_list("flash_attention.cuh", "kHeadDims"),
                  True: _c_int_list("flash_attention.cuh", "kBwdHeadDims")}
-    wgmma = {False: set(_c_int_list("flash_attention.cuh", "kSm90HeadDims")),
-             True: set(_c_int_list("flash_attention.cuh", "kSm90BwdHeadDims"))}
     assert tuple(head_dims[False]) == flash_mod.HEAD_DIMS
     assert tuple(head_dims[True]) == flash_mod.BWD_HEAD_DIMS
 
@@ -643,20 +640,20 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
             return -1
         if dtype == 0:
             return enum["kTf32x3"]
-        return enum["kSm90Wgmma"] if hd in wgmma[backward] else enum["kMmaSync"]
+        if dtype not in (1, 2):
+            return -1
+        return enum["kSm90Wgmma"]
 
     for dtype in (1, 2):   # bfloat16, float16
-        assert flash_mod.VARIANTS[rule(256, dtype, False)] == "sm90_wgmma"
-        assert flash_mod.VARIANTS[rule(256, dtype, True)] == "sm90_wgmma"
-        assert flash_mod.VARIANTS[rule(128, dtype, True)] == "sm90_wgmma"
-        assert flash_mod.VARIANTS[rule(80, dtype, False)] == "sm90_wgmma"
-        assert flash_mod.VARIANTS[rule(80, dtype, True)] == "sm90_wgmma"
-        for hd_ in (16, 32):
-            assert all(flash_mod.VARIANTS[rule(hd_, dtype, backward)] == "mma_sync"
-                       for backward in (False, True))
+        for backward in (False, True):
+            assert all(flash_mod.VARIANTS[rule(hd_, dtype, backward)] == "sm90_wgmma"
+                       for hd_ in head_dims[backward])
+            for hd_ in (256, 128, 80, 32, 16):
+                assert flash_mod.VARIANTS[rule(hd_, dtype, backward)] == "sm90_wgmma"
     for backward in (False, True):
         assert flash_mod.VARIANTS[rule(256, 0, backward)] == "tf32x3"
         assert flash_mod.VARIANTS[rule(80, 0, backward)] == "tf32x3"
+        assert rule(80, 3, backward) == -1
     assert all(rule(80, dtype, backward) != -1 for dtype in (0, 1, 2)
                for backward in (False, True))
     assert all(rule(96, dtype, backward) == -1 for dtype in (0, 1, 2)
@@ -669,22 +666,36 @@ def test_dispatch_rule_routes_16bit_head_dim_256_forward_to_wgmma():
         (False, "sm90_wgmma"): _compiled_head_dims(
             "flash_attention_sm90.cu", "int launch_sm90",
             r"if \(hd == (\d+)\) return launch<__nv_bfloat16, \1>"),
-        (False, "mma_sync"): _compiled_head_dims(
-            "flash_attention.cu", "int dispatch_mma",
-            r"case (\d+): return \(int\)launch_mma<T, \1,"),
         (True, "sm90_wgmma"): _compiled_head_dims(
             "flash_attention_bwd_sm90.cu", "int launch_bwd_sm90",
             r"if \(hd == (\d+)\) return launch<__nv_bfloat16, \1>"),
-        (True, "mma_sync"): _compiled_head_dims(
-            "flash_attention_bwd.cu", "int dispatch_mma",
-            r"case (\d+): return launch_mma<T, \1>"),
     }
+    # and the same head_dims in fp16
+    for backward, source, function in (
+            (False, "flash_attention_sm90.cu", "int launch_sm90"),
+            (True, "flash_attention_bwd_sm90.cu", "int launch_bwd_sm90")):
+        assert _compiled_head_dims(source, function,
+                                   r"if \(hd == (\d+)\) return launch<__half, \1>") == \
+            compiled[(backward, "sm90_wgmma")]
+        assert {16, 32} <= compiled[(backward, "sm90_wgmma")]
     compiled[(False, "tf32x3")] = _compiled_head_dims(
         "flash_attention_fp32.cu", "int launch_fwd_tf32x3", r"case (\d+): return launch_fwd<\1>")
     compiled[(True, "tf32x3")] = _compiled_head_dims(
         "flash_attention_fp32.cu", "int launch_bwd_tf32x3", r"case (\d+): return launch_bwd<\1>")
     for backward in (False, True):
-        for kind, dtype in (("sm90_wgmma", 1), ("mma_sync", 1), ("tf32x3", 0)):
+        for kind, dtype in (("sm90_wgmma", 1), ("tf32x3", 0)):
             routed = {hd for hd in head_dims[backward]
                       if flash_mod.VARIANTS[rule(hd, dtype, backward)] == kind}
             assert routed == compiled[(backward, kind)], (backward, kind)
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.iterdir()
+                                           if p.suffix in (".cu", ".cuh")))
+def test_no_16bit_kernel_on_the_ampere_path_remains(source):
+    """Every 16-bit attention kernel is a TMA + wgmma one: no source under ``csrc/``
+    issues the Ampere-style 16-bit product (``mma.sync`` m16n8k16) or loads its
+    fragments with ``ldmatrix``.  The float32 kernels' m16n8k8 TF32 products stay."""
+    text = (CSRC / source).read_text()
+    assert "m16n8k16" not in text and "ldmatrix" not in text
+    if source == "flash_attention_fp32.cu":
+        assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text

@@ -5,7 +5,7 @@ sequences, and how many query heads share one K/V head (the K/V bytes each tile
 brings in).
 
     python3 tools/flash_bench.py [--backward] [--dtype bf16|fp16|fp32] [--iters 20]
-                                 [--src DIR] [--out FILE]
+                                 [--head-dims 32 16] [--src DIR] [--out FILE]
 
 For each shape: the kernel variant that ran, its time (CUDA events over --iters
 calls after a warm-up, the wrapper's host work included), the same calls replayed
@@ -16,10 +16,14 @@ backward, through autograd, with --backward) on the same tensors as a yardstick 
 port never calls it).  The bound is the larger of the bytes over 3.35 TB/s and the
 operations over the peak: 989 TFLOP/s in 16 bits; in float32, whose kernels run
 3xTF32 (three TF32 products a float32 product), 495 / 3 = 165 TFLOP/s.  The forward's
-16-bit shapes include gemma-7b's head_dim 256 and zamba2-2.7b's head_dim 80.  The
-backward's hold 8192 tokens a call: S in 1024..8192, causal and not, head_dim 128 (28
-query heads on 4 K/V heads) and 64 (56 on 8), then zamba2's training shape (head_dim
-80, 32 heads on 32) and gemma's (head_dim 256).  float32 (--dtype fp32), both ways:
+16-bit shapes include gemma-7b's head_dim 256, zamba2-2.7b's head_dim 80 and head_dim
+32 and 16 at (2, 2048, 16/16), causal.  The backward's hold 8192 tokens a call: S in
+1024..8192, causal and not, head_dim 128 (28 query heads on 4 K/V heads) and 64 (56
+on 8), then zamba2's training shape (head_dim 80, 32 heads on 32), gemma's (head_dim
+256) and head_dim 32 and 16 at (2, 2048, 16/16), causal.  At head_dim 32 and 16 the
+row also gives the floor the exponentials set (``ex2_floor_ms``: one a visible pair
+at 16 a clock on each of 132 SMs at 1.83 GHz).  --head-dims keeps the shapes of those
+head_dims only.  float32 (--dtype fp32), both ways:
 launch_reduced's (8, 256, 4/2, 32) and qwen2-7b's training shape (2, 4096, 28/4,
 128), both causal.  --src times another checkout's kernels (its ``src``, e.g. a
 parent commit unpacked under ``_cmp/``) with this script, so two trees can be timed
@@ -39,6 +43,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_TENSOR_16BIT_FLOPS = 989e12
 PEAK_TF32X3_FLOPS = 495e12 / 3   # float32-accurate work on the TF32 tensor cores
+PEAK_EX2_PER_S = 16 * 132 * 1.83e9   # MUFU exponentials: 16 a clock an SM
 
 # (B, S, H, KV, hd, causal): the serving shape first, then one change at a time
 SHAPES = [
@@ -52,6 +57,8 @@ SHAPES = [
     (4, 2048, 16, 16, 256, False),   # the same, bidirectional
     (4, 2048, 32, 32, 80, True),     # zamba2-2.7b prefill: head_dim 80 (its 4096-token
                                      # window does not bite at 2048)
+    (2, 2048, 16, 16, 32, True),     # head_dim 32: one 32-column box
+    (2, 2048, 16, 16, 16, True),     # head_dim 16: one 16-column box
 ]
 # the backward's: (B, S, H, KV, hd, causal), 8192 tokens a call
 BWD_SHAPES = [(8192 // S, S, H, KV, hd, causal)
@@ -59,7 +66,9 @@ BWD_SHAPES = [(8192 // S, S, H, KV, hd, causal)
               for causal in (True, False)
               for S in (1024, 2048, 4096, 8192)]
 BWD_SHAPES += [(2, 4096, 32, 32, 80, True),     # zamba2-2.7b's training shape
-               (2, 4096, 16, 16, 256, True)]    # gemma-7b's
+               (2, 4096, 16, 16, 256, True),    # gemma-7b's
+               (2, 2048, 16, 16, 32, True),     # head_dim 32 and 16
+               (2, 2048, 16, 16, 16, True)]
 # float32, both ways: launch_reduced's shape (the reduced qwen2-7b, 8 x 256 tokens)
 # and qwen2-7b's training shape
 FP32_SHAPES = [(8, 256, 4, 2, 32, True), (2, 4096, 28, 4, 128, True)]
@@ -72,6 +81,8 @@ def main() -> None:
                     help="time the backward kernels (beside the library's backward)")
     ap.add_argument("--dtype", choices=("bf16", "fp16", "fp32"), default="bf16")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--head-dims", type=int, nargs="*", default=[],
+                    help="time only the shapes of these head_dims")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the src directory whose repro_torch is timed")
     ap.add_argument("--out", default="")
@@ -130,6 +141,8 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: nothing")
     rows = []
     shapes = FP32_SHAPES if dtype == torch.float32 else BWD_SHAPES if args.backward else SHAPES
+    if args.head_dims:
+        shapes = [s for s in shapes if s[4] in args.head_dims]
     for B, S, H, KV, hd, causal in shapes:
         q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(dtype)
         k = torch.randn((B, S, KV, hd), generator=gen, device=dev).to(dtype)
@@ -168,6 +181,8 @@ def main() -> None:
                "bound_ms": bound_ms, "bound_by": max(bounds, key=bounds.get),
                "share_of_bound": bound_ms / ms, "graph_share_of_bound": bound_ms / dev_ms,
                "library_ms": lib_ms}
+        if hd <= 32:
+            row["ex2_floor_ms"] = pairs * B * H / PEAK_EX2_PER_S * 1e3
         rows.append(row)
         print(json.dumps(row), flush=True)
         del q, k, v, qt, kt, vt

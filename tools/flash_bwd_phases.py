@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a step of the attention backward's wgmma kernel spends its time, on the card.
 
-    python3 tools/flash_bwd_phases.py [--shape qwen2|zamba2|gemma] [--out FILE]
+    python3 tools/flash_bwd_phases.py [--shape qwen2|zamba2|gemma|small] [--out FILE]
 
 Where no profiler can attach to the card (ncu, nsys), stall reasons cannot be read,
 so this tool instruments the kernel itself: it copies the package into
@@ -10,8 +10,9 @@ boundaries of each step of ``csrc/flash_attention_bwd_sm90.cu`` (thread 0 of eac
 consumer warpgroup of two blocks: block 0 and the middle one), builds that copy,
 runs one backward at a training shape (qwen2: q (2, 4096, 28, 128), k/v (2, 4096, 4,
 128); zamba2: q/k/v (2, 4096, 32, 80), whose 4096-token window does not bite there;
-gemma: q/k/v (2, 4096, 16, 256); causal, bf16) and prints, per block and warpgroup,
-the median SM cycles of each phase over steps 20..219, the cycles of a whole step,
+gemma: q/k/v (2, 4096, 16, 256); small: q/k/v (2, 4096, 16, 32), head_dim 32's two
+16-column boxes; causal, bf16) and prints, per block and warpgroup, the median SM
+cycles of each phase over steps 20..219 (or the last stamped), the cycles of a whole step,
 and the SM clock the run had (cycles over %globaltimer nanoseconds).  The stamps
 cost a few percent of the kernel's time; the phases are what to compare, not the
 total.
@@ -41,7 +42,7 @@ ROOT = Path(__file__).resolve().parent.parent
 STEPS, MARKS = 512, 9
 PHASES = ["full_wait", "s_dp", "math", "ds_store", "dv_dk", "dq_issue", "wait", "dq_stage"]
 SHAPES = {"qwen2": (2, 4096, 28, 4, 128), "zamba2": (2, 4096, 32, 32, 80),
-          "gemma": (2, 4096, 16, 16, 256)}
+          "gemma": (2, 4096, 16, 16, 256), "small": (2, 4096, 16, 16, 32)}
 
 # (anchor in the kernel source, the text that replaces it): stamps 0..8 in order
 PATCHES = [
@@ -194,10 +195,11 @@ def main() -> None:
     rows = []
     for blk in range(2):
         for c in range(2):
-            st = cycles[blk, c, 20:220]
+            end = min(220, int((cycles[blk, c, :, MARKS - 1] > 0).sum()))
+            st = cycles[blk, c, 20:end]
             d = np.diff(st, axis=1)
             step_cycles = np.diff(st[:, 0])
-            step_ns = np.diff(ns[blk, c, 20:220])
+            step_ns = np.diff(ns[blk, c, 20:end])
             row = {"shape": args.shape, "block": "first" if blk == 0 else "middle",
                    "warpgroup": c,
                    "cycles_per_step": float(np.median(step_cycles)),

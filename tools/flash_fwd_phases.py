@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a kv step of the attention forward's wgmma kernel spends its time, on the card.
 
-    python3 tools/flash_fwd_phases.py [--shape gemma|qwen2|zamba2] [--out FILE]
+    python3 tools/flash_fwd_phases.py [--shape gemma|qwen2|zamba2|small] [--out FILE]
 
 Where no profiler can attach to the card (ncu, nsys), stall reasons cannot be read,
 so this tool instruments the kernel itself, as ``tools/flash_bwd_phases.py`` does
@@ -11,7 +11,8 @@ inserts ``clock64()`` stamps at the phase boundaries of each steady-state kv ste
 block 0 and the middle one), builds that copy, runs one forward at the shape (gemma:
 q/k/v (4, 2048, 16, 256), causal; qwen2: q (4, 2048, 28, 128), k/v (4, 2048, 4, 128),
 causal; zamba2: q/k/v (4, 2048, 32, 80), causal, whose 4096-token window does not bite
-there; bf16) and prints, per block and warpgroup, the median SM cycles of each
+there; small: q/k/v (2, 2048, 16, 32), causal: head_dim 32's one 32-column box;
+bf16) and prints, per block and warpgroup, the median SM cycles of each
 phase over the steps stamped, the cycles of a whole step, and the SM clock the run
 had (cycles over %globaltimer nanoseconds).  The stamps cost a few percent of the
 kernel's time; the phases are what to compare, not the total.
@@ -37,7 +38,7 @@ ROOT = Path(__file__).resolve().parent.parent
 STEPS, MARKS = 512, 7
 PHASES = ["k_wait", "issue", "s_wait", "softmax", "pv_wait", "rescale"]
 SHAPES = {"gemma": (4, 2048, 16, 16, 256), "qwen2": (4, 2048, 28, 4, 128),
-          "zamba2": (4, 2048, 32, 32, 80)}
+          "zamba2": (4, 2048, 32, 32, 80), "small": (2, 2048, 16, 16, 32)}
 
 # (anchor in the kernel source, the text that replaces it): stamps 0..6 in order
 PATCHES = [
