@@ -1,0 +1,10 @@
+"""The benchmark's own tests (run them with ``python -m pytest perfbench/tests``).
+They import the harness (``perfbench/``) and the port (``src/``)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT / "perfbench", ROOT / "src"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
