@@ -23,8 +23,10 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models.lm import LM
+from repro_torch.obs import NULL_OBS, Obs
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.parallel.axes import AxisRules, use_rules
+from repro_torch.runtime.spans import CardClock, phase
 
 MOD_KEYS = ("audio_embed", "vision_embed")
 
@@ -63,7 +65,8 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1,
                     remat: str = "selective", mesh: Any = None,
                     rules: AxisRules | None = None) -> Callable:
-    """Returns ``train_step(state, batch) -> (state, metrics)``.
+    """Returns ``train_step(state, batch, obs=NULL_OBS, clock=None, **attrs) ->
+    (state, metrics)``.
 
     ``state = {"params": {name: tensor}, "opt": OptState}``;
     ``batch = {"tokens": (B,S) int, "labels": (B,S) int}`` and, for the models
@@ -72,45 +75,56 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
     summed in fp32 and divided by M, as the loss is.  Metrics (0-d tensors on the
     device, plain also on a mesh): ``loss``, ``grad_norm``, ``lr``, ``tokens``.
     With ``mesh`` the state and batch are DTensors (``runtime.trainer`` places
-    them) and the step runs under ``rules``.
+    them) and the step runs under ``rules``.  The step records its phases into
+    ``obs`` (``runtime.spans.phase``): ``train.forward`` (the loss included) and
+    ``train.backward`` per microbatch (attr ``mb``), then ``train.optimizer``
+    (global norm, clip and update), each with ``attrs``, and with a ``clock``
+    (``runtime.spans.CardClock``) their intervals on the card.
     """
 
     def loss_fn(mb: dict) -> torch.Tensor:
         rest, mods = _split_mods(model, mb)
         return model.loss(rest["tokens"], rest["labels"], remat=remat, **mods)
 
-    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+    def train_step(state: dict, batch: dict, obs: Obs = NULL_OBS,
+                   clock: CardClock | None = None, **attrs) -> tuple[dict, dict]:
         if mesh is None:
-            return _train_step(state, batch)
+            return _train_step(state, batch, obs, clock, attrs)
         with use_rules(mesh, rules), implicit_replication():
-            return _train_step(state, batch)
+            return _train_step(state, batch, obs, clock, attrs)
 
-    def _train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+    def _train_step(state: dict, batch: dict, obs: Obs, clock: CardClock | None,
+                    attrs: dict) -> tuple[dict, dict]:
         params = _bind_params(model, state["params"])
         leaves = list(params.values())
         M = microbatches
         if M == 1:
-            loss = loss_fn(batch)
-            grads = torch.autograd.grad(loss, leaves)
+            with phase(obs, "train.forward", clock, mb=0, **attrs):
+                loss = loss_fn(batch)
+            with phase(obs, "train.backward", clock, mb=0, **attrs):
+                grads = torch.autograd.grad(loss, leaves)
             loss = loss.detach()
         else:
             n = batch["tokens"].shape[0] // M
             loss, grads = 0.0, None
             for i in range(M):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l_i = loss_fn(mb)
-                g_i = [g.float() for g in torch.autograd.grad(l_i, leaves)]
-                if grads is None:
-                    grads = g_i
-                else:
-                    for acc, g in zip(grads, g_i):
-                        acc.add_(g)
+                with phase(obs, "train.forward", clock, mb=i, **attrs):
+                    l_i = loss_fn(mb)
+                with phase(obs, "train.backward", clock, mb=i, **attrs):
+                    g_i = [g.float() for g in torch.autograd.grad(l_i, leaves)]
+                    if grads is None:
+                        grads = g_i
+                    else:
+                        for acc, g in zip(grads, g_i):
+                            acc.add_(g)
                 loss = loss + l_i.detach()
             loss = loss / M
             for acc in grads:
                 acc.div_(M)
-        new_params, new_opt, om = adamw_update(params, dict(zip(params, grads)),
-                                               state["opt"], opt_cfg)
+        with phase(obs, "train.optimizer", clock, **attrs):
+            new_params, new_opt, om = adamw_update(params, dict(zip(params, grads)),
+                                                   state["opt"], opt_cfg)
         tokens = batch["tokens"]
         metrics = {"loss": _plain(loss), **om,
                    "tokens": torch.tensor(float(tokens.shape[0] * tokens.shape[1]),

@@ -12,7 +12,13 @@ Drives the train step over the synthetic pipeline with:
     checkpointed at the event onto them (an elastic reshard), then folds the
     measured restore into the engine's reconfiguration cost model
     (``calibrate_io``),
-  * the same ``history`` records and ``adaptations`` / ``engine`` views.
+  * the same ``history`` records and ``adaptations`` / ``engine`` views,
+  * spans of each step in the ``obs`` it is given (``runtime.spans``): ``train.step``
+    holding ``train.data``, the step's ``train.forward`` / ``train.backward`` /
+    ``train.optimizer`` (with the card's intervals on the host clock, on CUDA) and,
+    on a logged step, ``train.wait``; ``train.checkpoint``; and per event
+    ``train.event`` holding its checkpoint, the engine's ``replan.*`` spans and
+    ``train.restore``.  ``obs`` may be assigned between two ``run`` calls.
 
 With ``mesh`` (a ``DeviceMesh`` with axes ``("data", "model")`` or ``("pod",
 "data", "model")``, ``launch.mesh``) the train state lives as DTensors under the
@@ -45,10 +51,12 @@ from repro_torch.models.convert import (export_jax_train_state,
                                         jax_train_state_like,
                                         load_jax_train_state)
 from repro_torch.models.lm import LM
+from repro_torch.obs import Obs, resolve_obs
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.axes import distribute, full
 from repro_torch.parallel.trainstep import init_train_state, make_train_step
+from repro_torch.runtime.spans import CardClock, phase
 
 Pytree = Any
 
@@ -76,10 +84,13 @@ class Trainer:
                  plan: ParallelPlan | None = None,
                  topo: ClusterTopology | None = None,
                  events: Sequence[tuple[int, NetworkEvent]] = (),
-                 scenario: "str | object | None" = None):
+                 scenario: "str | object | None" = None,
+                 obs: Obs | None = None):
         self.cfg = cfg
+        self._obs = resolve_obs(obs)
         self.device = torch.device(cfg.device)
         self.model = LM(cfg.arch, device=self.device)
+        self._clock = CardClock(self.device) if self.device.type == "cuda" else None
         self.plan = plan
         self.topo = topo
         self.trace = None
@@ -128,7 +139,7 @@ class Trainer:
             desc = cfg.arch.to_model_desc()
             self._engine = ReplanEngine(
                 desc, global_batch=cfg.global_batch, seq=cfg.seq_len,
-                cache=StrategyCache())
+                cache=StrategyCache(obs=self._obs), obs=self._obs)
             try:
                 # cold plan up front: warms the strategy cache + candidate
                 # portfolio so every later event takes a warm path
@@ -137,8 +148,20 @@ class Trainer:
                 pass
             self._orch = DynamicOrchestrator(
                 model=desc, global_batch=cfg.global_batch, seq=cfg.seq_len,
-                engine=self._engine)
+                engine=self._engine, obs=self._obs)
         self._build(mesh)
+
+    @property
+    def obs(self) -> Obs:
+        """The telemetry bundle the run records into, and the re-planning parts
+        with it."""
+        return self._obs
+
+    @obs.setter
+    def obs(self, obs: Obs) -> None:
+        self._obs = obs
+        if self._engine is not None:
+            self._engine.obs = self._engine.cache.obs = self._orch.obs = obs
 
     # -- public adaptation telemetry ------------------------------------------
 
@@ -210,48 +233,53 @@ class Trainer:
 
     def _handle_event(self, step: int, ev: NetworkEvent,
                       state: Pytree) -> Pytree:
-        assert self.topo is not None and self._orch is not None
-        self.saver.wait()
-        ck = Path(self.cfg.ckpt_dir) / f"step_{step}"
-        self._save(ck, state, step)
-        self.saver.wait()
-        if self.mesh is not None:
-            dist.barrier()           # rank 0's checkpoint is on disk for all
-        self.topo.apply_event(ev)
-        if self._engine is not None and len(self.history) > self._hist_mark:
-            # remaining-horizon budget for the engine's switch-cost
-            # hysteresis: steps left x the measured mean step wall time.
-            # Only entries logged by *this* run() invocation qualify: their
-            # wall is measured from this run's t0 and covers the steps since
-            # start_step (a previous run's entries would mix timebases)
-            m = self.history[-1]
-            done = max(m["step"] - self._start_step + 1, 1)
-            self._engine.switch_horizon_s = \
-                (self.cfg.steps - step) * m["wall"] / done
-        old_plan = self.plan or ParallelPlan()
-        self.plan = self._orch.adapt(old_plan, self.topo, ev)
-        self.replans += 1
-        # rebuild the step and shardings against the new plan and reshard the
-        # state checkpointed above onto them
-        self._build(self.mesh)
-        like = jax_train_state_like(self.model)
-        t0 = time.perf_counter()
-        tree, _ = restore(ck, like, shardings=self.state_sh)
-        restored = load_jax_train_state(self.model, tree)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        restore_s = time.perf_counter() - t0
-        # the restored tree's bytes (parameters in the model's dtype, fp32
-        # moments, the int32 step), as the reference counts its leaves
-        nbytes = sum(leaf.numel() * leaf.element_size() for _, leaf in _items(tree))
-        del tree                      # the host copy, before the next step
-        self.restores.append({"step": step, "seconds": restore_s, "bytes": nbytes})
-        if self._engine is not None:
-            # calibration hook: fold the measured checkpoint-restore path
-            # into the reconfiguration cost model, so simulated switch
-            # charges track what elastic restore costs on this deployment
-            self._engine.reconfig.calibrate_io(restore_s, float(nbytes))
-        return restored
+        with phase(self.obs, "train.event", step=step, kind=ev.kind):
+            assert self.topo is not None and self._orch is not None
+            ck = Path(self.cfg.ckpt_dir) / f"step_{step}"
+            with phase(self.obs, "train.checkpoint", step=step):
+                self.saver.wait()
+                self._save(ck, state, step)
+                self.saver.wait()
+                if self.mesh is not None:
+                    dist.barrier()   # rank 0's checkpoint is on disk for all
+            self.topo.apply_event(ev)
+            if self._engine is not None and len(self.history) > self._hist_mark:
+                # remaining-horizon budget for the engine's switch-cost
+                # hysteresis: steps left x the measured mean step wall time.
+                # Only entries logged by *this* run() invocation qualify: their
+                # wall is measured from this run's t0 and covers the steps since
+                # start_step (a previous run's entries would mix timebases)
+                m = self.history[-1]
+                done = max(m["step"] - self._start_step + 1, 1)
+                self._engine.switch_horizon_s = \
+                    (self.cfg.steps - step) * m["wall"] / done
+            old_plan = self.plan or ParallelPlan()
+            self.plan = self._orch.adapt(old_plan, self.topo, ev)
+            self.replans += 1
+            # rebuild the step and shardings against the new plan and reshard the
+            # state checkpointed above onto them
+            self._build(self.mesh)
+            like = jax_train_state_like(self.model)
+            with phase(self.obs, "train.restore", step=step) as span:
+                t0 = time.perf_counter()
+                tree, _ = restore(ck, like, shardings=self.state_sh)
+                restored = load_jax_train_state(self.model, tree)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                restore_s = time.perf_counter() - t0
+                # the restored tree's bytes (parameters in the model's dtype, fp32
+                # moments, the int32 step), as the reference counts its leaves
+                nbytes = sum(leaf.numel() * leaf.element_size()
+                             for _, leaf in _items(tree))
+                del tree              # the host copy, before the next step
+                span.set(bytes=nbytes, seconds=restore_s)
+            self.restores.append({"step": step, "seconds": restore_s, "bytes": nbytes})
+            if self._engine is not None:
+                # calibration hook: fold the measured checkpoint-restore path
+                # into the reconfiguration cost model, so simulated switch
+                # charges track what elastic restore costs on this deployment
+                self._engine.reconfig.calibrate_io(restore_s, float(nbytes))
+            return restored
 
     # -- main loop -------------------------------------------------------------
 
@@ -261,6 +289,7 @@ class Trainer:
         state = state if state is not None else self.init_state()
         self._start_step = start_step
         self._hist_mark = len(self.history)
+        obs, clock = self.obs, self._clock
         ev_i = 0
         t0 = time.perf_counter()
         for step in range(start_step, cfg.steps):
@@ -268,17 +297,33 @@ class Trainer:
                 _, ev = self.events[ev_i]
                 state = self._handle_event(step, ev, state)
                 ev_i += 1
-            batch = self._place(self.data.batch(step))
-            state, metrics = self._step(state, batch)
-            if step % cfg.log_every == 0 or step == cfg.steps - 1:
-                m = {k: float(v) for k, v in metrics.items()}
-                m.update(step=step, wall=time.perf_counter() - t0)
-                self.history.append(m)
-                tok_s = m["tokens"] * (step - start_step + 1) / m["wall"]
-                print(f"  step {step:4d} loss {m['loss']:.4f} "
-                      f"gnorm {m['grad_norm']:.2f} lr {m['lr']:.2e} "
-                      f"tok/s {tok_s:,.0f}", flush=True)
-            if cfg.ckpt_every and step and step % cfg.ckpt_every == 0:
-                self._save(Path(cfg.ckpt_dir) / f"step_{step}", state, step)
+            with phase(obs, "train.step", step=step,
+                       tokens=cfg.global_batch * cfg.seq_len):
+                with phase(obs, "train.data", clock, step=step) as span:
+                    host = self.data.batch(step)
+                    batch = self._place(host)
+                    if obs.enabled:
+                        span.set(bytes=sum(v.nbytes for v in host.values()))
+                if obs.enabled:
+                    state, metrics = self._step(state, batch, obs=obs, clock=clock,
+                                                step=step)
+                else:                 # the plain call: a step given as (state, batch)
+                    state, metrics = self._step(state, batch)
+                if step % cfg.log_every == 0 or step == cfg.steps - 1:
+                    with phase(obs, "train.wait", step=step):
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m.update(step=step, wall=time.perf_counter() - t0)
+                        self.history.append(m)
+                        tok_s = m["tokens"] * (step - start_step + 1) / m["wall"]
+                        print(f"  step {step:4d} loss {m['loss']:.4f} "
+                              f"gnorm {m['grad_norm']:.2f} lr {m['lr']:.2e} "
+                              f"tok/s {tok_s:,.0f}", flush=True)
+                    if clock is not None:
+                        clock.synced()
+                if cfg.ckpt_every and step and step % cfg.ckpt_every == 0:
+                    with phase(obs, "train.checkpoint", step=step):
+                        self._save(Path(cfg.ckpt_dir) / f"step_{step}", state, step)
         self.saver.wait()
+        if clock is not None:
+            clock.flush()
         return state, self.history

@@ -9,8 +9,9 @@ two warm-up steps, then
   * traces ``--steps`` steps with torch.profiler: wall time, device-busy time and
     idle share, device time by kind of kernel (the port's kernels by name, matrix
     products, elementwise, reductions, ...) and the top kernels by device time;
-  * times the step's three parts untraced with CUDA events (forward + loss,
-    backward, AdamW update), the way ``make_train_step`` runs them.
+  * runs ``--steps`` more steps untraced with the step's own spans on
+    (``obs=Obs()``) and prints its three phases' card milliseconds a step (forward +
+    loss, backward, AdamW update: the ``train.*`` spans' ``cuda:*`` intervals).
 Needs a CUDA device.
 
     PYTHONPATH=src python tools/profile_train_torch.py [--arch qwen2_7b] [--layers 8]
@@ -35,9 +36,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig, adamw_update  # noqa: E402
+from repro_torch.obs import NULL_OBS, Obs  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.parallel.trainstep import (init_train_state,  # noqa: E402
                                             make_train_step)
+from repro_torch.runtime.spans import CardClock  # noqa: E402
 
 #: kinds of device kernels, by a piece of their name; the first match wins
 KINDS = (("flash_attention_bwd", ("flash_bwd",)),
@@ -122,8 +125,8 @@ def main() -> None:
         box["i"] += 1
         return {k: torch.from_numpy(v).to(dev) for k, v in data.batch(box["i"] - 1).items()}
 
-    def step():
-        box["state"], _ = train_step(box["state"], next_batch())
+    def step(obs=NULL_OBS, **attrs):
+        box["state"], _ = train_step(box["state"], next_batch(), obs=obs, **attrs)
 
     step()
     step()                                      # warm-up
@@ -131,26 +134,16 @@ def main() -> None:
               "batch": args.batch, "seq": args.seq, "remat": remat,
               "step": traced(step, args.steps, args.top)}
 
-    # the step's parts, untraced, as make_train_step runs them (one microbatch)
-    params = dict(model.named_parameters())
-    parts = {"forward_and_loss": [], "backward": [], "adamw": []}
-    for _ in range(args.steps):
-        batch = next_batch()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        loss = model.loss(batch["tokens"], batch["labels"], remat=remat)
-        ev[1].record()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        ev[2].record()
-        _, new_opt, _ = adamw_update(params, dict(zip(params, grads)),
-                                     box["state"]["opt"], opt)
-        ev[3].record()
-        box["state"] = {"params": params, "opt": new_opt}
-        torch.cuda.synchronize()
-        for k, (a, b) in zip(parts, zip(ev, ev[1:])):
-            parts[k].append(a.elapsed_time(b))
-        del loss, grads
-    result["parts_ms"] = {k: sum(v) / len(v) for k, v in parts.items()}
+    # the step's phases, untraced, from its own spans: the card's intervals
+    obs, clock = Obs(), CardClock(dev)
+    for i in range(args.steps):
+        step(obs, clock=clock, step=i)
+    clock.flush()
+    phases = ("train.forward", "train.backward", "train.optimizer")
+    result["phases_card_ms"] = {
+        name: sum(sp.duration for sp in obs.tracer.spans
+                  if sp.name == name and "lane" in sp.attrs) * 1e3 / args.steps
+        for name in phases}
     result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     print(json.dumps(result, indent=1))
     if args.out:
