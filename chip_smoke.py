@@ -186,6 +186,7 @@ it never carries on on the CPU.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -1371,6 +1372,121 @@ def run(args, torch) -> None:
     del x, dy, w, xr, wr, y_lib
     torch.cuda.empty_cache()
 
+    # The fused AdamW (csrc/adamw.cu) at the train phase's leaf set: qwen2-7b at full
+    # width and TRAIN_LAYERS layers, 98 leaves, 2.409 G bf16 parameters and gradients,
+    # float32 moments (~29 GB).  One step (the cosine schedule's step 150) against the
+    # plain update on copies of p, m and v; then the fused step and the plain one timed
+    # in turns, each one's kernels counted, the fused step's host time, the bound (24
+    # bytes a parameter at 3.35 TB/s) and a second step bit for bit.
+    def adamw_kernels(leaves) -> int:
+        """The kernels one fused AdamW step launches over these parameters: a sum of
+        squares and an update per table of at most MAX_LEAVES leaves of one dtype (a
+        path's gradients share one dtype per parameter dtype), and the clip."""
+        from repro_torch.kernels import adamw as adamw_mod
+        by_dtype = collections.Counter(p.dtype for p in leaves)
+        return 1 + 2 * sum(-(-n // adamw_mod.MAX_LEAVES) for n in by_dtype.values())
+
+    def timed_adamw() -> tuple[dict, dict]:
+        from repro_torch.kernels import adamw as adamw_mod
+        from repro_torch.optim import adamw as optim_adamw
+        shapes = {n: p.shape for n, p in LM(dataclasses.replace(cfg, n_layers=TRAIN_LAYERS),
+                                             device="meta").named_parameters()}
+        P = {n: randn(s, bf16, 0.02) for n, s in shapes.items()}
+        G = {n: randn(s, bf16, 1e-4) for n, s in shapes.items()}
+        M = {n: randn(s, torch.float32, 1e-6) for n, s in shapes.items()}
+        V = {n: randn(s, torch.float32, 1e-5).square() for n, s in shapes.items()}
+        n_params = sum(p.numel() for p in P.values())
+        acfg = AdamWConfig()
+        step0 = torch.tensor(149, dtype=torch.int32, device=dev)
+        clone = lambda tree: {n: t.clone() for n, t in tree.items()}  # noqa: E731
+        Pp, Mp, Vp = clone(P), clone(M), clone(V)
+        before = adamw_mod.launches
+        _, _, met = optim_adamw.adamw_update(P, G, optim_adamw.OptState(M, V, step0), acfg)
+        if adamw_mod.launches != before + adamw_kernels(P.values()):
+            fail(f"adamw: the update on CUDA tensors launched {adamw_mod.launches - before} "
+                 f"fused kernels, expected {adamw_kernels(P.values())}")
+        norm, lr, _ = optim_adamw.plain_update(Pp, G, optim_adamw.OptState(Mp, Vp, step0),
+                                               acfg)
+        torch.cuda.synchronize()
+        norm_rel = abs(float(met["grad_norm"]) - float(norm)) / float(norm)
+        lr_rel = abs(float(met["lr"]) - float(lr)) / float(lr)
+        v_rel = max(float(((V[n] - Vp[n]).abs() / Vp[n].clamp(min=1e-30)).max()) for n in P)
+        m_share = max(float((M[n] - Mp[n]).abs().max() / Mp[n].abs().max().clamp(min=1e-30))
+                      for n in P)
+        p_differ = sum(int((P[n] != Pp[n]).sum()) for n in P)
+        if not (norm_rel <= 1e-6 and lr_rel <= 1e-6 and v_rel <= 1e-6 and m_share <= 1e-6
+                and p_differ <= 1e-4 * n_params):
+            fail(f"adamw: norm {norm_rel:.3g}, lr {lr_rel:.3g}, v {v_rel:.3g} relative, m "
+                 f"{m_share:.3g} of its largest; "
+                 f"p differs in {p_differ} of {n_params} entries")
+        del Pp, Mp, Vp
+        torch.cuda.empty_cache()
+        state = optim_adamw.OptState(M, V, step0)
+        fused = lambda: optim_adamw.adamw_update(P, G, state, acfg)  # noqa: E731
+        plain = lambda: optim_adamw.plain_update(P, G, state, acfg)  # noqa: E731
+        ms, plain_ms = [], []
+        for _ in range(2):
+            ms.append(time_ms(fused, 10, warmup=1))
+            plain_ms.append(time_ms(plain, 3, warmup=1))
+        host_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fused()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        counted = {}
+        for name, fn in (("fused", fused), ("plain", plain)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            counted[name] = {"kernels": sum(e.count for e in evs),
+                             "device_ms": sum(e.self_device_time_total for e in evs) / 1e3,
+                             "repro_adamw_ms": sum(e.self_device_time_total for e in evs
+                                                   if "repro_adamw" in e.key) / 1e3}
+        bound_ms = n_params * 24 / PEAK_BYTES_PER_S * 1e3
+        # two steps from one state, bit for bit: each step's bits summed leaf by leaf
+        # (a copy of the results would not fit beside the state and its snapshot)
+        def bits() -> list:
+            return [int(t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+                        .sum(dtype=torch.int64)) for tree in (P, M, V) for t in tree.values()]
+
+        first = clone(P), clone(M), clone(V)
+        fused()
+        once = bits()
+        for tree, copy in zip((P, M, V), first):
+            for n, t in tree.items():
+                t.copy_(copy[n])
+        del first
+        fused()
+        repeat = bits() == once
+        if not repeat:
+            fail("adamw: two fused steps from one state differ")
+        del P, G, M, V, state
+        torch.cuda.empty_cache()
+        check = {"leaves": len(shapes), "n_params": n_params, "norm_rel_err": norm_rel,
+                 "lr_rel_err": lr_rel, "v_rel_err": v_rel, "m_err_share": m_share,
+                 "p_entries_differ": p_differ, "repeat_checksums_equal": repeat}
+        entry = {
+            "name": "adamw", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
+            "replaces": "none (the plain update, optim/adamw.py plain_update)",
+            "launches": 0, "dtype": "bfloat16", "leaves": len(shapes), "n_params": n_params,
+            "ms": float(np.median(ms)), "ms_readings": ms,
+            "plain_ms": float(np.median(plain_ms)), "plain_ms_readings": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound": bound_ms / float(np.median(ms)),
+            "host_ms": host_ms, "step_kernels": counted["fused"]["kernels"],
+            "plain_step_kernels": counted["plain"]["kernels"], "profiled": counted}
+        print(f"  adamw: {entry['ms']:.2f} ms ({100 * entry['share_of_bound']:.1f} % of "
+              f"{bound_ms:.2f}), plain {entry['plain_ms']:.1f} ms; {entry['step_kernels']} "
+              f"kernels against {entry['plain_step_kernels']}; host {min(host_ms):.2f} ms",
+              flush=True)
+        return check, entry
+
+    adamw_check, adamw_timed = timed_adamw()
+
     kernels = {
         "rmsnorm": {
             "name": "rmsnorm", "route": "cuda",
@@ -1460,6 +1576,9 @@ def run(args, torch) -> None:
                for key in ("max_abs_err", "max_err_share", "ms", "graph_ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms", "tflops", "variant")},
             "launches_by_variant": {}, "repeat": fp32_repeat, "long_shape": long_fp32_bwd},
+        # the fused AdamW at the train phase's leaf set; `launches` filled from the
+        # main paths, each fused step's by `train_launches`
+        "adamw": adamw_timed,
     }
     report["kernels_checked"] = {
         "phase": "kernels", "ok": not FAILURES,
@@ -1472,7 +1591,7 @@ def run(args, torch) -> None:
         "flash_bwd_refusal": bwd_refusal, "flash_uncompiled_head_dim": uncompiled,
         "rmsnorm_cases": rms_cases,
         "flash_bwd_cases": flash_bwd_cases, "rmsnorm_bwd_cases": rms_bwd_cases,
-        "kernels": list(kernels.values())}
+        "adamw_check": adamw_check, "kernels": list(kernels.values())}
     emit(with_clocks(report["kernels_checked"], start))
     stop_if_failed("kernels")
 
@@ -1497,7 +1616,7 @@ def run(args, torch) -> None:
             rms += 2 * c.encoder_layers + 1
             flash += c.encoder_layers
         return {"rmsnorm": rms, "flash_attention": flash,
-                "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0}
 
     def decode_launches(c) -> dict:
         """One decode step: the same norms (whisper re-encodes every step, as the
@@ -1521,12 +1640,16 @@ def run(args, torch) -> None:
                     for variant, name in FLASH_BWD_VARIANT_KERNELS.items()})
         return out
 
-    def train_launches(c) -> dict:
-        """One train step without remat: each forward launch has its backward."""
+    def train_launches(c, fused: bool = True) -> dict:
+        """One train step without remat: each forward launch has its backward, and
+        the update the fused AdamW's kernels where its leaves are plain CUDA tensors
+        (``fused``; a mesh's DTensors take the plain update)."""
         fwd = forward_launches(c)
+        leaves = LM(c, device="meta").parameters()
         return {"rmsnorm": fwd["rmsnorm"], "rmsnorm_bwd": fwd["rmsnorm"],
                 "flash_attention": fwd["flash_attention"],
-                "flash_attention_bwd": fwd["flash_attention"]}
+                "flash_attention_bwd": fwd["flash_attention"],
+                "adamw": adamw_kernels(leaves) if fused else 0}
 
     def open_gates(model) -> None:
         """The reference initialises the cross-attention gates at zero, which makes
@@ -1841,7 +1964,8 @@ def run(args, torch) -> None:
     # the first and last logged steps (with `event_steps`, the mean of the steps that
     # handled no event), tokens/s, MFU and peak memory.
     def train_reading(phase: str, tcfg, model, hist, steps: int, batch: int,
-                      seq: int, logged: list, event_steps: tuple = ()) -> dict:
+                      seq: int, logged: list, event_steps: tuple = (),
+                      fused: bool = True) -> dict:
         L_ = tcfg.n_layers
         counts = ops.launch_counts()
         path_counts[phase] = counts
@@ -1855,7 +1979,7 @@ def run(args, torch) -> None:
         flop_params = n_params
         if n_shared > 1:
             flop_params += (n_shared - 1) * sum(p.numel() for p in model.shared.parameters())
-        per_step = train_launches(tcfg)
+        per_step = train_launches(tcfg, fused)
         want = {k: steps * n for k, n in per_step.items()}
         fwd_kind = bwd_kind = expected_variant(tcfg.torch_dtype)
         path_want[phase] = by_kernel(want, fwd_kind, bwd_kind)
@@ -1957,7 +2081,7 @@ def run(args, torch) -> None:
         state, hist = trainer.run(state)
         torch.cuda.synchronize()
         out = train_reading(phase, tcfg, trainer.model, hist, steps, B_TRAIN, S_TRAIN,
-                            list(range(steps)))
+                            list(range(steps)), fused=mesh is None)
         out["init_s"] = round(init_s, 2)
         if mesh is not None:
             out.update(mesh_reading(trainer, state, ref, out))
@@ -2387,7 +2511,7 @@ def run(args, torch) -> None:
             seq_ms = elapsed_ms(lambda: step(sequential))
             pipe_ms2 = elapsed_ms(lambda: step(pipe))
         per_layer = {"rmsnorm": 2, "flash_attention": 1, "rmsnorm_bwd": 2,
-                     "flash_attention_bwd": 1}
+                     "flash_attention_bwd": 1, "adamw": 0}
         want = {k: n * PIPE_LAYERS * PIPE_M for k, n in per_layer.items()}
         fwd_kind = bwd_kind = expected_variant(bf16)
         path_want[phase] = by_kernel(want, fwd_kind, bwd_kind)
@@ -2636,7 +2760,9 @@ def run(args, torch) -> None:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "dtype", "tol")
     keys += ("variant", "launches_by_path", "launches_by_variant", "head_dim_256",
-             "head_dim_80", "head_dim_32", "head_dim_16", "graph_ms", "long_shape")
+             "head_dim_80", "head_dim_32", "head_dim_16", "graph_ms", "long_shape",
+             "leaves", "n_params", "share_of_bound", "host_ms", "step_kernels",
+             "plain_step_kernels")
     kernels_line = {"kernels": [{key: kern[key] for key in keys if key in kern}
                                 for kern in kernels.values()]}
     final = {"ok": True, "device": {"platform": "gpu",

@@ -128,6 +128,17 @@ class FlashBwdCall(ctypes.Structure):
                    ("device", _I)])
 
 
+class AdamwCall(ctypes.Structure):
+    """``struct AdamwCall`` of ``csrc/adamw.cu``: one optimizer step's arguments
+    (``launched`` is written back: the kernels the step launched)."""
+    _fields_ = ([(n, _P) for n in ("leaves", "partials", "out", "lr", "b1c", "b2c",
+                                   "stream")]
+                + [("n_leaves", _I), ("partials_len", _I)]
+                + [(n, _F) for n in ("b1", "one_minus_b1", "b2", "one_minus_b2", "eps",
+                                     "weight_decay", "clip")]
+                + [("device", _I), ("launched", _I)])
+
+
 #: the library's C interface, name -> (restype, argtypes); ``load()`` binds it and
 #: a CPU test holds it against the ``extern "C"`` declarations in ``csrc/``
 #: (a pointer to a struct is a ``c_void_p`` here: the address of a ``RmsnormCall``)
@@ -139,6 +150,7 @@ SIGNATURES = {
     "repro_flash_attention_variant": (_I, [_I, _I]),
     "repro_flash_attention_bwd": (_I, [_P]),
     "repro_flash_attention_bwd_variant": (_I, [_I, _I]),
+    "repro_adamw_step": (_I, [_P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -149,6 +161,7 @@ REFUSALS = {
     -3: "a TMA tensor map could not be encoded for these tensors",
     -4: "the driver's cuTensorMapEncodeTiled is unavailable",
     -5: "a row too wide for the kernel's shared memory, or a bad worker count",
+    -6: "scratch too small for the fused AdamW's partial sums",
 }
 
 

@@ -10,6 +10,7 @@ functions.
 
 from __future__ import annotations
 
+from repro_torch.kernels import adamw as _adamw_mod
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm_mod
@@ -22,11 +23,13 @@ flash_attention_bwd_reference = ref.flash_attention_bwd_reference
 rmsnorm_reference = ref.rmsnorm_reference
 rmsnorm_bwd_reference = ref.rmsnorm_bwd_reference
 
-#: name -> (module, its counter): the forward and backward launches of each kernel
+#: name -> (module, its counter): the forward and backward launches of each kernel,
+#: and the fused AdamW's kernels (``optim.adamw.adamw_update`` on plain CUDA tensors)
 _COUNTED = {"rmsnorm": (_rmsnorm_mod, "launches"),
             "rmsnorm_bwd": (_rmsnorm_mod, "bwd_launches"),
             "flash_attention": (_flash_mod, "launches"),
-            "flash_attention_bwd": (_flash_mod, "bwd_launches")}
+            "flash_attention_bwd": (_flash_mod, "bwd_launches"),
+            "adamw": (_adamw_mod, "launches")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -17,7 +17,15 @@ parameters' placements and the moments theirs, as the reference's
 Where the reference returns new arrays (and the launcher donates the old ones),
 :func:`adamw_update` updates the parameters and moments IN PLACE and returns the
 same tensors: the values are the same, and a 545 M-entry embedding then needs
-two fp32 temporaries at a time instead of five.
+two fp32 temporaries at a time instead of five (:func:`plain_update`), or none
+(the fused kernels).
+
+On one card (plain CUDA tensors) the update is the fused multi-tensor kernels of
+``kernels/adamw.py``: a sum of squares and an update pass over every leaf, with the
+global norm and clip scale computed on the card between them, in place of ~20
+PyTorch launches a leaf.  :func:`plain_update` is the same arithmetic in PyTorch
+operations, for the CPU and for DTensors.  Both take the step count, learning rate
+and bias corrections from :func:`step_scalars`.
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ from typing import NamedTuple
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor import zeros as dtensor_zeros
+
+from repro_torch.kernels import adamw as fused_adamw
+from repro_torch.obs import NULL_OBS, Obs
 
 
 @dataclass(frozen=True)
@@ -54,6 +65,15 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     cos = cfg.min_lr_frac * cfg.peak_lr + \
         (1 - cfg.min_lr_frac) * cfg.peak_lr * 0.5 * (1 + torch.cos(math.pi * prog))
     return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor):
+    """The step count after the step (``step`` + 1), its learning rate and the bias
+    corrections ``1 - b1**t``, ``1 - b2**t``: 0-d tensors on ``step``'s device, the
+    last three float32."""
+    step = step + 1
+    t = step.to(torch.float32)
+    return step, cosine_lr(cfg, step), 1.0 - cfg.b1 ** t, 1.0 - cfg.b2 ** t
 
 
 class OptState(NamedTuple):
@@ -116,18 +136,50 @@ def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _fusable(params: dict, grads: dict, state: OptState) -> bool:
+    """Whether the fused kernels take this step: every tensor a plain one on the
+    card.  DTensors (a mesh, ZeRO-1, the dry run) and CPU tensors take
+    :func:`plain_update`."""
+    first = next(iter(params.values()), None)
+    if first is None or any(isinstance(t, DTensor) for tree in (params, grads, state.m,
+                                                                 state.v)
+                            for t in tree.values()):
+        return False
+    return first.is_cuda
+
+
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: OptState,
-                 cfg: AdamWConfig) -> tuple[dict, OptState, dict]:
+def adamw_update(params: dict, grads: dict, state: OptState, cfg: AdamWConfig,
+                 obs: Obs = NULL_OBS) -> tuple[dict, OptState, dict]:
     """One AdamW step.  Returns (params, new_state, metrics); ``params`` and the
-    moments are updated in place (see the module docstring)."""
+    moments are updated in place (see the module docstring).  Plain CUDA tensors
+    take the fused kernels (``kernels/adamw.py``), anything else
+    :func:`plain_update`; ``obs`` counts the leaves each took
+    (``optim.adamw.fused_leaves``, ``optim.adamw.plain_leaves``)."""
+    if _fusable(params, grads, state):
+        obs.inc("optim.adamw.fused_leaves", len(params))
+        names = list(params)
+        step, lr, b1c, b2c = step_scalars(cfg, state.step)
+        gnorm = fused_adamw.adamw_step(
+            [params[n] for n in names], [grads[n] for n in names],
+            [state.m[n] for n in names], [state.v[n] for n in names], lr, b1c, b2c, cfg)
+    else:
+        obs.inc("optim.adamw.plain_leaves", len(params))
+        gnorm, lr, step = plain_update(params, grads, state, cfg)
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return params, OptState(state.m, state.v, step), metrics
+
+
+@torch.no_grad()
+def plain_update(params: dict, grads: dict, state: OptState,
+                 cfg: AdamWConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The update leaf by leaf in PyTorch operations, in place on ``params`` and
+    ``state``'s moments; returns the global norm, the step's learning rate and the
+    new step count.  What the fused kernels are held against."""
     grads = {name: _like(g, state.m[name]) for name, g in grads.items()}
     gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    step = state.step + 1
-    lr = cosine_lr(cfg, step)
-    b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
-    b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
+    step, lr, b1c, b2c = step_scalars(cfg, state.step)
     for name, p in params.items():
         m, v = state.m[name], state.v[name]
         g = grads[name].float() * scale
@@ -142,5 +194,4 @@ def adamw_update(params: dict, grads: dict, state: OptState,
             p.sub_(delta)
         else:
             p.copy_(p.float().sub_(delta))
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, OptState(state.m, state.v, step), metrics
+    return gnorm, lr, step

@@ -124,7 +124,7 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
                 acc.div_(M)
         with phase(obs, "train.optimizer", clock, **attrs):
             new_params, new_opt, om = adamw_update(params, dict(zip(params, grads)),
-                                                   state["opt"], opt_cfg)
+                                                   state["opt"], opt_cfg, obs=obs)
         tokens = batch["tokens"]
         metrics = {"loss": _plain(loss), **om,
                    "tokens": torch.tensor(float(tokens.shape[0] * tokens.shape[1]),

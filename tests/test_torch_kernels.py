@@ -184,7 +184,8 @@ def test_ops_on_cpu_take_plain_versions_and_launch_nothing():
     x.requires_grad_()
     (ops.flash_attention(q, k, v).sum() + ops.rmsnorm(x, w).sum()).backward()
     assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_bwd": 0,
-                                   "flash_attention": 0, "flash_attention_bwd": 0}
+                                   "flash_attention": 0, "flash_attention_bwd": 0,
+                                   "adamw": 0}
     assert ops.flash_launches_by_variant() == {"tf32x3": 0, "sm90_wgmma": 0}
     assert ops.flash_bwd_launches_by_variant() == {"tf32x3": 0, "sm90_wgmma": 0}
     assert flash_mod.launches == 0 and rmsnorm_mod.launches == 0
@@ -699,3 +700,176 @@ def test_no_16bit_kernel_on_the_ampere_path_remains(source):
     assert "m16n8k16" not in text and "ldmatrix" not in text
     if source == "flash_attention_fp32.cu":
         assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in text
+
+
+# ------------------------------------------------------------- fused AdamW
+
+from repro_torch.kernels import adamw as adamw_mod  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.optim import adamw as optim_adamw  # noqa: E402
+
+ADAMW_SHAPES = {"embed": (12, 8), "w": (8, 6), "bias": (6,), "gain": (8,)}
+
+
+def _adamw_state(seed: int, dtype=torch.bfloat16):
+    """Parameters, gradients and mid-run moments of ``ADAMW_SHAPES``, drawn from
+    ``seed``, with the step count at 149."""
+    gen = torch.Generator().manual_seed(seed)
+    params = {n: torch.randn(s, generator=gen).to(dtype) for n, s in ADAMW_SHAPES.items()}
+    grads = {n: torch.randn(s, generator=gen).to(dtype) for n, s in ADAMW_SHAPES.items()}
+    state = optim_adamw.OptState(
+        m={n: 0.1 * torch.randn(s, generator=gen) for n, s in ADAMW_SHAPES.items()},
+        v={n: torch.rand(s, generator=gen) for n, s in ADAMW_SHAPES.items()},
+        step=torch.tensor(149, dtype=torch.int32))
+    return params, grads, state
+
+
+def _clone(tree: dict) -> dict:
+    return {n: t.clone() for n, t in tree.items()}
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A one-rank mesh on torch's fake process group (destroyed after the test)."""
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_mesh
+    with fake_group(1):
+        yield make_mesh((1,), ("data",), device_type="cpu")
+
+
+@pytest.mark.parametrize("kind", ["cpu", "dtensor", "cuda"])
+def test_adamw_update_takes_the_path_its_tensors_show(kind, monkeypatch, request):
+    """CPU tensors and DTensors take the plain update, which gives what
+    ``plain_update`` gives on copies; plain CUDA tensors (CPU tensors posing as CUDA
+    ones) take the fused step, handed every leaf in the parameters' order with the
+    plain update's learning rate and bias corrections, and return its norm with the
+    plain update's rate and count.  ``obs`` counts the leaves by path."""
+    params, grads, state = _adamw_state(0)
+    want_p, want_m, want_v = _clone(params), _clone(state.m), _clone(state.v)
+    cfg = optim_adamw.AdamWConfig()
+    want_norm, want_lr, want_step = optim_adamw.plain_update(
+        want_p, _clone(grads), optim_adamw.OptState(want_m, want_v, state.step), cfg)
+    taken = []
+
+    def fused(*args):
+        taken.append(args)
+        return torch.zeros(())
+
+    monkeypatch.setattr(adamw_mod, "adamw_step", fused)
+    if kind == "dtensor":
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        mesh = request.getfixturevalue("one_rank_mesh")
+        params, grads, m, v = ({n: distribute_tensor(t, mesh, [Replicate()])
+                                for n, t in tree.items()}
+                               for tree in (params, grads, state.m, state.v))
+        state = optim_adamw.OptState(m, v, state.step)
+    elif kind == "cuda":
+        params, grads, m, v = ({n: _cuda(t)[0] for n, t in tree.items()}
+                               for tree in (params, grads, state.m, state.v))
+        state = optim_adamw.OptState(m, v, state.step)
+    obs = Obs()
+    new_p, new_state, metrics = optim_adamw.adamw_update(params, grads, state, cfg, obs=obs)
+    fused_n = obs.metrics.counter_value("optim.adamw.fused_leaves")
+    plain_n = obs.metrics.counter_value("optim.adamw.plain_leaves")
+    assert int(new_state.step) == 150 and new_p is params
+    if kind == "cuda":
+        assert (fused_n, plain_n) == (len(ADAMW_SHAPES), 0) and len(taken) == 1
+        ps, gs, ms, vs, lr_t, b1c_t, b2c_t, cfg_t = taken[0]
+        assert all(a is b for a, b in zip(ps + gs + ms + vs,
+                                          [*params.values(), *grads.values(),
+                                           *state.m.values(), *state.v.values()]))
+        assert len(ps) == len(ADAMW_SHAPES) and cfg_t is cfg
+        assert lr_t is metrics["lr"] and float(lr_t) == float(want_lr)
+        assert float(b1c_t) == float(1.0 - cfg.b1 ** torch.tensor(150.0))
+        assert float(b2c_t) == float(1.0 - cfg.b2 ** torch.tensor(150.0))
+        assert lr_t.dtype == b1c_t.dtype == b2c_t.dtype == torch.float32
+        return
+    assert (fused_n, plain_n) == (0, len(ADAMW_SHAPES)) and not taken
+    full = (lambda t: t.full_tensor()) if kind == "dtensor" else (lambda t: t)
+    assert float(metrics["grad_norm"]) == float(want_norm)   # plain, also on a mesh
+    assert float(metrics["lr"]) == float(want_lr) and int(want_step) == 150
+    for n in ADAMW_SHAPES:
+        assert torch.equal(full(new_p[n]), want_p[n])
+        assert torch.equal(full(new_state.m[n]), want_m[n])
+        assert torch.equal(full(new_state.v[n]), want_v[n])
+
+
+_ADAMW_REFUSALS = {
+    # name: (how to break one leaf's (p, g, m, v) of ``_adamw_state``, or the step's
+    #        scalars (lr, b1c, b2c); error; what its message says)
+    "g_shape": (lambda p, g, m, v: (p, g.reshape(-1), m, v), ValueError, "do not match"),
+    "m_shape": (lambda p, g, m, v: (p, g, m[:1], v), ValueError, "do not match"),
+    "g_device": ("g_device", ValueError, "must be on cuda:0"),
+    "v_other_card": ("v_other_card", ValueError, "must be on cuda:0"),
+    "p_dtype": (lambda p, g, m, v: (p.double(), g, m, v), TypeError, "unsupported dtypes"),
+    "g_dtype": (lambda p, g, m, v: (p, g.long(), m, v), TypeError, "unsupported dtypes"),
+    "m_dtype": (lambda p, g, m, v: (p, g, m.bfloat16(), v), TypeError, "must be float32"),
+    "p_layout": (lambda p, g, m, v: (p.t().contiguous().t(), g, m, v), ValueError,
+                 "contiguous"),
+    "v_layout": (lambda p, g, m, v: (p, g, m, v.t().contiguous().t()), ValueError,
+                 "contiguous"),
+    "step_dtype": ("step_dtype", ValueError, "scalar lr must be one float32"),
+    "step_device": ("step_device", ValueError, "scalar b2c must be one float32"),
+    "count": ("count", ValueError, "moments"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_ADAMW_REFUSALS))
+def test_fused_adamw_refuses_bad_arguments(bad):
+    """Every check of the fused step raises on CPU tensors posing as CUDA ones,
+    before any library is loaded, and counts no launch."""
+    params, grads, state = _adamw_state(1)
+    names = list(ADAMW_SHAPES)
+    ps, gs, ms, vs = ([tree[n] for n in names] for tree in (params, grads, state.m, state.v))
+    _, lr, b1c, b2c = optim_adamw.step_scalars(optim_adamw.AdamWConfig(), state.step)
+    lr, b1c, b2c = _cuda(lr, b1c, b2c)
+    breaker, error, says = _ADAMW_REFUSALS[bad]
+    if callable(breaker):   # the "w" leaf, (8, 6)
+        ps[1], gs[1], ms[1], vs[1] = breaker(ps[1], gs[1], ms[1], vs[1])
+    ps, gs, ms, vs = ([_cuda(t)[0] for t in ts] for ts in (ps, gs, ms, vs))
+    if bad == "g_device":
+        gs[2] = gs[2].as_subclass(torch.Tensor)
+    elif bad == "v_other_card":
+        vs[0] = vs[0].as_subclass(FakeCuda1)
+    elif bad == "step_dtype":
+        lr = _cuda(lr.double())[0]
+    elif bad == "step_device":
+        b2c = b2c.as_subclass(torch.Tensor)
+    elif bad == "count":
+        ms = ms[:-1]
+    before = adamw_mod.launches
+    with pytest.raises(error, match=says):
+        adamw_mod.adamw_step(ps, gs, ms, vs, lr, b1c, b2c, optim_adamw.AdamWConfig())
+    assert adamw_mod.launches == before
+
+
+def test_adamw_argument_block_matches_the_c_struct():
+    assert _c_struct_fields("adamw.cu", "AdamwCall") == list(_build.AdamwCall._fields_)
+
+
+@pytest.mark.parametrize("name,const", [("SUMSQ_BLOCKS", "kSumsqBlocks"),
+                                        ("MAX_LEAVES", "kMaxLeaves")])
+def test_adamw_wrapper_constants_match_the_c_source(name, const):
+    """The wrapper sizes the partial sums, and ``chip_smoke.py`` counts the kernels a
+    step launches, by the source's own constants."""
+    found = re.search(r"constexpr int " + const + r" = (\d+);", (CSRC / "adamw.cu").read_text())
+    assert found and int(found.group(1)) == getattr(adamw_mod, name)
+
+
+def test_adamw_kernel_names_leave_the_elementwise_metric():
+    """Every kernel of ``csrc/adamw.cu`` is named ``repro_adamw_*``, and no name the
+    profiler shows for one (its template and parameter types included) holds a
+    pattern by which ``perfbench/metrics/elementwise_ms_per_step.py`` counts a kernel
+    as PyTorch's elementwise work: the update's time is read by ``adamw_roofline``."""
+    import ast
+    metric = Path(__file__).resolve().parents[1] / "perfbench/metrics/elementwise_ms_per_step.py"
+    match = next(ast.literal_eval(node.value) for node in ast.parse(metric.read_text()).body
+                 if isinstance(node, ast.Assign) and node.targets[0].id == "MATCH")
+    text = (CSRC / "adamw.cu").read_text()
+    kernels = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(", text)
+    assert len(kernels) == 3 and all(k.startswith("repro_adamw_") for k in kernels)
+    # the names a demangled signature can hold: kernels, the types of the file, the
+    # element types of the templates
+    names = set(kernels) | set(re.findall(r"struct (\w+)", text)) | {
+        "float", "double", "int", "__nv_bfloat16", "__half"}
+    assert not [(n, p) for n in names for p in match if p in n.lower()]

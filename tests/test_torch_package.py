@@ -124,13 +124,20 @@ def test_chip_smoke_refuses_to_run_without_a_card():
 KERNEL_SOURCES = sorted(p for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()
                         if p.suffix in (".cu", ".cuh"))
 REPLACED = ("src/repro/kernels/rmsnorm.py", "src/repro/kernels/flash_attention.py")
+#: the one source that replaces no TPU kernel, and the reference's code it stands for
+NO_TPU_KERNEL = {"src/repro_torch/kernels/csrc/adamw.cu":
+                 "src/repro/optim/adamw.py (adamw_update)"}
 
 
 @pytest.mark.parametrize("path", KERNEL_SOURCES, ids=_rel)
 def test_kernel_sources_name_what_they_replace(path):
     """Every CUDA source's header note names the TPU kernel it replaces (file and
-    function) and what bounds it on this card."""
+    function), and what bounds it on this card; the fused AdamW, which replaces none,
+    names the reference's code it stands for (``NO_TPU_KERNEL``)."""
     head = path.read_text().split("#include")[0]
-    assert any(r in head for r in REPLACED), f"{_rel(path)} names no TPU kernel"
-    assert "_kernel" in head, f"{_rel(path)} names no TPU kernel function"
+    if _rel(path) in NO_TPU_KERNEL:
+        assert f"Replaces no TPU kernel: it stands for {NO_TPU_KERNEL[_rel(path)]}" in head
+    else:
+        assert any(r in head for r in REPLACED), f"{_rel(path)} names no TPU kernel"
+        assert "_kernel" in head, f"{_rel(path)} names no TPU kernel function"
     assert "Bound on this card" in head

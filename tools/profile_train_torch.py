@@ -11,7 +11,8 @@ two warm-up steps, then
     products, elementwise, reductions, ...) and the top kernels by device time;
   * runs ``--steps`` more steps untraced with the step's own spans on
     (``obs=Obs()``) and prints its three phases' card milliseconds a step (forward +
-    loss, backward, AdamW update: the ``train.*`` spans' ``cuda:*`` intervals).
+    loss, backward, AdamW update: the ``train.*`` spans' ``cuda:*`` intervals) and
+    the host's (the spans themselves: the time to enqueue each phase).
 Needs a CUDA device.
 
     PYTHONPATH=src python tools/profile_train_torch.py [--arch qwen2_7b] [--layers 8]
@@ -47,6 +48,7 @@ KINDS = (("flash_attention_bwd", ("flash_bwd",)),
          ("flash_attention", ("flash_fwd",)),
          ("rmsnorm_bwd", ("rmsnorm_bwd", "rmsnorm_dw")),
          ("rmsnorm", ("rmsnorm",)),
+         ("adamw", ("repro_adamw",)),
          ("matrix products", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
          ("embedding", ("embedding",)),
          ("reductions", ("reduce", "norm_kernel")),
@@ -140,10 +142,11 @@ def main() -> None:
         step(obs, clock=clock, step=i)
     clock.flush()
     phases = ("train.forward", "train.backward", "train.optimizer")
-    result["phases_card_ms"] = {
-        name: sum(sp.duration for sp in obs.tracer.spans
-                  if sp.name == name and "lane" in sp.attrs) * 1e3 / args.steps
-        for name in phases}
+    for key, on_card in (("phases_card_ms", True), ("phases_host_ms", False)):
+        result[key] = {
+            name: sum(sp.duration for sp in obs.tracer.spans
+                      if sp.name == name and ("lane" in sp.attrs) == on_card) * 1e3
+            / args.steps for name in phases}
     result["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     print(json.dumps(result, indent=1))
     if args.out:
