@@ -3,10 +3,11 @@
 cell's chips; not run by the benchmark's runs).
 
 For each seed: the program's first ``check_steps`` steps through the Trainer at the
-cell's own size, then the float32 reference on the same weights and batches, and
-the three numbers of ``harness.compare`` between them (the lower readings).  For the
-first ``--control-seeds`` seeds also, each put in the program's place and compared
-with the same reference (the upper readings):
+cell's own size, then the configuration's float32 reference on the same weights and
+batches, and every number of ``harness.compare`` between them, ``grad_proj_gap``
+among them (the lower readings).  For the first ``--control-seeds`` seeds also, each
+of these put in the program's place and compared with the same reference (the upper
+readings):
 
 * ``control``: the reference with every tensor the program holds in bfloat16 held in
   float8 (e4m3 forward, e5m2 backward), the precision below the configuration's;
@@ -48,9 +49,9 @@ def biggest_leaf(specs) -> str:
     return max((math.prod(s.shape), s.name) for s in specs if s.name != "embed.tok")[1]
 
 
-def variants(cfg: dict, traffic: dict) -> dict:
+def variants(ref_model, cfg: dict, traffic: dict) -> dict:
     """name -> (precision, rows, labels altered, doubled parameter)."""
-    doubled = biggest_leaf(reference.param_specs(cfg))
+    doubled = biggest_leaf(ref_model.param_specs(cfg))
     half = slice(0, traffic["global_batch"] // 2)
     everything = slice(None)
     return {"control": (reference.FLOAT8, everything, False, None),
@@ -61,8 +62,9 @@ def variants(cfg: dict, traffic: dict) -> dict:
 
 
 def leaves(r: reference.Readings) -> dict:
-    """Each leaf's first-gradient norm and change norm, for a look afterwards."""
-    return {n: [r.grad_norms[n], r.change_norms[n]] for n in r.grad_norms}
+    """Each leaf's first-gradient norm and projection and its change norm, for a
+    look afterwards."""
+    return {n: [r.grad_norms[n], r.grad_proj[n], r.change_norms[n]] for n in r.grad_norms}
 
 
 def main() -> int:
@@ -104,7 +106,7 @@ def main() -> int:
             t1 = time.perf_counter()
             params0 = weights.initial(cfg, specs, seed, "cuda")
             batches = [feed.synthetic_batch(seed, s, B, S, V) for s in range(n)]
-            ref = ref_model.train(cfg, params0, batches, reference.AdamW())
+            ref = ref_model.train(cfg, params0, batches, reference.AdamW(), seed)
             t2 = time.perf_counter()
             numbers, where = compare.gaps(prog, ref)
             emit({"workload": name, "seed": seed, "side": "program", **numbers,
@@ -113,11 +115,12 @@ def main() -> int:
             emit({"workload": name, "seed": seed, "side": "reference", "losses": ref.losses,
                   "leaves": leaves(ref)})
             if i < args.control_seeds:
-                for side, (pr, rows, labels, doubled) in variants(cfg, traffic).items():
+                for side, (pr, rows, labels, doubled) in variants(ref_model, cfg,
+                                                                  traffic).items():
                     t3 = time.perf_counter()
                     fed = [dict(b, labels=b["tokens"]) if labels else b for b in batches]
-                    got = ref_model.train(cfg, params0, fed, reference.AdamW(), pr=pr,
-                                          rows=rows, double=doubled)
+                    got = ref_model.train(cfg, params0, fed, reference.AdamW(), seed,
+                                          pr=pr, rows=rows, double=doubled)
                     numbers, where = compare.gaps(got, ref)
                     emit({"workload": name, "seed": seed, "side": side, **numbers,
                           "where": where, "losses": got.losses,

@@ -3,13 +3,15 @@ the least time the attention kernels could take at the cell's shapes.
 
 Copied from ``chip_smoke.py`` (its peaks, ``visible_pairs`` and ``train_reading``'s
 MFU count) and from its flash bounds, so that a change to the program cannot move
-them.  The parameter count is the reference's (``reference.params_run``), not the
-program's.
+them.  What depends on the model comes from the configuration's reference module
+(``spec.reference(cfg)``), not from the program: the parameters that run
+(``params_run``), the attention calls (``attention_calls``) and any further
+operations (``other_flops``).
 """
 
 from __future__ import annotations
 
-from harness import reference
+from harness import reference, spec
 
 #: one NVIDIA H100 SXM, NVIDIA's data sheet, dense rates, at its 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -26,24 +28,16 @@ def visible_pairs(S: int, causal: bool, window: int) -> int:
     return w * (w + 1) // 2 + (S - w) * w
 
 
-def attention_shape(cfg: dict, traffic: dict) -> dict:
-    """One attention call of the cell: batch, heads, key heads, head size, length,
-    window, and how many such calls a forward pass makes."""
-    return {"B": traffic["global_batch"], "S": traffic["seq_len"],
-            "H": cfg["num_attention_heads"], "KV": cfg["num_key_value_heads"],
-            "hd": cfg["head_dim"], "window": cfg["attention_window"],
-            "calls": reference.attention_layers(cfg)}
-
-
 def step_flops(cfg: dict, traffic: dict) -> float:
-    """The model operations of one training step: 6 a parameter and token, and
+    """The model operations of one training step: 6 a parameter and token,
     attention's 12 * head_dim a visible pair (forward 4, backward 8) at each
-    attention layer.  Recomputed work is not counted."""
-    a = attention_shape(cfg, traffic)
-    tokens = a["B"] * a["S"]
-    attn = 12.0 * a["hd"] * visible_pairs(a["S"], True, a["window"]) * a["B"] * a["H"] \
-        * a["calls"]
-    return 6.0 * reference.params_run(cfg) * tokens + attn
+    attention call, and the reference module's ``other_flops``.  Recomputed work is
+    not counted."""
+    model = spec.reference(cfg)
+    tokens = traffic["global_batch"] * traffic["seq_len"]
+    attn = sum(12.0 * a["hd"] * visible_pairs(a["S"], True, a["window"]) * a["B"] * a["H"]
+               * a["calls"] for a in model.attention_calls(cfg, traffic))
+    return 6.0 * model.params_run(cfg) * tokens + attn + model.other_flops(cfg, traffic)
 
 
 def _flash_bytes(a: dict, elem: int, backward: bool) -> float:
@@ -63,9 +57,11 @@ def flash_bound_s(cfg: dict, traffic: dict, backward: bool) -> float:
     the chip: for each call the larger of its operations at the 16-bit peak (4 *
     head_dim a visible pair forward, 10 * head_dim backward) and its bytes at the
     memory's peak."""
-    a = attention_shape(cfg, traffic)
     elem = reference.DTYPES[cfg["torch_dtype"]].itemsize
     per_pair = 10.0 if backward else 4.0
-    ops = per_pair * a["hd"] * visible_pairs(a["S"], True, a["window"]) * a["B"] * a["H"]
-    one = max(ops / PEAK_16BIT_FLOPS, _flash_bytes(a, elem, backward) / PEAK_BYTES_PER_S)
-    return one * a["calls"]
+    total = 0.0
+    for a in spec.reference(cfg).attention_calls(cfg, traffic):
+        ops = per_pair * a["hd"] * visible_pairs(a["S"], True, a["window"]) * a["B"] * a["H"]
+        one = max(ops / PEAK_16BIT_FLOPS, _flash_bytes(a, elem, backward) / PEAK_BYTES_PER_S)
+        total += one * a["calls"]
+    return total

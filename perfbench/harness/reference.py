@@ -19,6 +19,13 @@ A :class:`Precision` is where the control enters: the same model with every tens
 that the program holds in bfloat16 rounded to float8 instead (``FLOAT8``), the
 precision below the configuration's.  ``BF16`` rounds them to bfloat16, as the
 program does: a second witness of what that rounding alone gives.
+
+This module is also the contract of a configuration's reference module
+(``harness/<cfg["reference"]>.py``), which gives everything that depends on the
+model: :func:`param_specs`, :func:`params_run`, :func:`loss`, :func:`train` (one call
+into the shared :func:`adamw_train`), :func:`attention_calls`, :func:`other_flops`
+and :func:`port_departures`.  What every model shares stays here: :class:`AdamW`,
+:class:`Precision`, :class:`Readings`, :func:`float32_exact` and the AdamW loop.
 """
 
 from __future__ import annotations
@@ -127,9 +134,60 @@ def params_run(cfg: dict) -> int:
     return sum(math.prod(s.shape) for s in param_specs(cfg))
 
 
-def attention_layers(cfg: dict) -> int:
-    """Attention occurrences a forward pass."""
-    return kinds(cfg).count("attn")
+# ---------------------------------------------------------------------------
+# the work of a step, beyond 6 operations a parameter and token
+# ---------------------------------------------------------------------------
+
+
+def attention_calls(cfg: dict, traffic: dict) -> list[dict]:
+    """One entry for each kind of attention call in a step: batch ``B``, length
+    ``S``, heads ``H``, key heads ``KV``, head size ``hd``, ``window`` (0: none), and
+    the ``calls`` a forward pass makes.  Every call is causal."""
+    return [{"B": traffic["global_batch"], "S": traffic["seq_len"],
+             "H": cfg["num_attention_heads"], "KV": cfg["num_key_value_heads"],
+             "hd": cfg["head_dim"], "window": cfg["attention_window"],
+             "calls": kinds(cfg).count("attn")}]
+
+
+def other_flops(cfg: dict, traffic: dict) -> float:
+    """A step's model operations counted neither as 6 a parameter and token nor as
+    attention's visible pairs: none in the dense decoder."""
+    return 0.0
+
+
+# ---------------------------------------------------------------------------
+# the port's configuration against the file
+# ---------------------------------------------------------------------------
+
+# the configuration file's keys, and the port's ArchConfig fields that state them
+PORT_FIELDS = {
+    "hidden_size": "d_model", "num_hidden_layers": "n_layers",
+    "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
+    "head_dim": "hd", "intermediate_size": "d_ff", "vocab_size": "vocab",
+    "rms_norm_eps": "norm_eps", "rope_theta": "rope_theta", "qkv_bias": "qkv_bias",
+    "tie_word_embeddings": "tie_embeddings", "torch_dtype": "dtype",
+    "attention_window": "attn_window",
+}
+# what the reference does not model, and the port must therefore not do
+PORT_OFF = {"qk_norm": False, "n_experts": 0, "logit_softcap": 0.0, "scale_embed": False,
+            "causal": True, "encoder_layers": 0, "cross_attn_every": 0,
+            "ffn_kind": "swiglu"}
+
+
+def port_departures(cfg: dict, arch) -> dict:
+    """Where the port's ArchConfig ``arch`` departs from the file or does what this
+    reference does not model: ``{key: (file's, port's)}``, empty when it runs the
+    configuration as stated."""
+    wrong = {}
+    for key, attr in PORT_FIELDS.items():
+        if key in cfg and getattr(arch, attr) != cfg[key]:
+            wrong[key] = (cfg[key], getattr(arch, attr))
+    for attr, value in PORT_OFF.items():
+        if getattr(arch, attr) != value:
+            wrong[attr] = (value, getattr(arch, attr))
+    if tuple(arch.pattern) != tuple(cfg["layer_pattern"]):
+        wrong["layer_pattern"] = (cfg["layer_pattern"], arch.pattern)
+    return wrong
 
 
 # ---------------------------------------------------------------------------
@@ -310,42 +368,55 @@ def float32_exact():
 @dataclass
 class Readings:
     """What a training run gives the comparison: the loss of each step, the norm
-    of each parameter's first gradient before clipping, and the norm of each
+    of each parameter's first gradient before clipping, its projection on the
+    parameter's fixed random direction (``weights.project``), and the norm of each
     parameter's change over the steps."""
     losses: list[float]
     grad_norms: dict[str, float]
+    grad_proj: dict[str, float]
     change_norms: dict[str, float]
 
 
-def train(cfg: dict, params0: dict, batches: list[dict], opt: AdamW,
+def train(cfg: dict, params0: dict, batches: list[dict], opt: AdamW, seed: int,
           pr: Precision = EXACT, rows: slice = slice(None),
           double: str | None = None) -> Readings:
-    """Follow ``len(batches)`` AdamW steps from ``params0`` (name -> tensor in the
-    parameter type, on the device the reference runs on).  The update is float32
-    and each parameter is stored back in the configuration's ``param_dtype`` after
-    it, as the configuration states.  ``pr`` rounds what the program would hold in
-    its 16-bit type (the control, the witness).  Planted faults, for the control's
-    tests:
-    ``rows`` keeps a share of each batch's rows (the rest left out), ``double``
-    names a parameter whose update is applied twice."""
+    """:func:`adamw_train` on this module's :func:`loss`."""
+    return adamw_train(cfg, params0, batches, opt, seed, loss_fn=loss, pr=pr, rows=rows,
+                       double=double)
+
+
+def adamw_train(cfg: dict, params0: dict, batches: list[dict], opt: AdamW, seed: int, *,
+                loss_fn, pr: Precision = EXACT, rows: slice = slice(None),
+                double: str | None = None) -> Readings:
+    """Follow ``len(batches)`` AdamW steps of ``loss_fn(P, cfg, tokens, labels, pr)``
+    from ``params0`` (name -> tensor in the parameter type, on the device the
+    reference runs on).  The update is float32 and each parameter is stored back in
+    the configuration's ``param_dtype`` after it, as the configuration states.
+    ``seed`` draws the directions the first gradient is projected on.  ``pr``
+    rounds what the program would hold in its 16-bit type (the control, the
+    witness).  Planted faults, for the control's tests: ``rows`` keeps a share of
+    each batch's rows (the rest left out), ``double`` names a parameter whose update
+    is applied twice."""
+    from harness.weights import project     # weights imports this module
     store = DTYPES[cfg["param_dtype"]]
     dev = next(iter(params0.values())).device
     names = list(params0)
     P = {n: params0[n].to(torch.float32, copy=True).requires_grad_() for n in names}
     m = {n: torch.zeros_like(P[n]) for n in names}
     v = {n: torch.zeros_like(P[n]) for n in names}
-    losses, grad_norms = [], {}
+    losses, grad_norms, grad_proj = [], {}, {}
     with float32_exact():
         for t, batch in enumerate(batches, start=1):
             tok = torch.as_tensor(np.ascontiguousarray(batch["tokens"][rows]), device=dev)
             lab = torch.as_tensor(np.ascontiguousarray(batch["labels"][rows]), device=dev)
-            value = loss(P, cfg, tok, lab, pr)
+            value = loss_fn(P, cfg, tok, lab, pr)
             grads = torch.autograd.grad(value, [P[n] for n in names])
             losses.append(float(value.detach()))
             del value
             norms = [g.norm() for g in grads]
             if t == 1:
                 grad_norms = {n: float(g) for n, g in zip(names, norms)}
+                grad_proj = project(dict(zip(names, grads)), seed)
             gnorm = torch.stack(norms).norm()
             scale = torch.clamp(opt.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
             lr = opt.lr(t)
@@ -365,4 +436,4 @@ def train(cfg: dict, params0: dict, batches: list[dict], opt: AdamW,
             del grads
     with torch.no_grad():
         change = {n: float((P[n] - params0[n].float()).norm()) for n in names}
-    return Readings(losses, grad_norms, change)
+    return Readings(losses, grad_norms, grad_proj, change)

@@ -27,21 +27,6 @@ from harness import trace as tracing
 #: the most steps one ``Trainer.run`` call of the window takes
 CHUNK = 8
 
-# the configuration file's keys, and the port's ArchConfig fields that state them
-PORT_FIELDS = {
-    "hidden_size": "d_model", "num_hidden_layers": "n_layers",
-    "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
-    "head_dim": "hd", "intermediate_size": "d_ff", "vocab_size": "vocab",
-    "rms_norm_eps": "norm_eps", "rope_theta": "rope_theta", "qkv_bias": "qkv_bias",
-    "tie_word_embeddings": "tie_embeddings", "torch_dtype": "dtype",
-    "attention_window": "attn_window",
-}
-# what the reference does not model, and the port must therefore not do
-PORT_OFF = {"qk_norm": False, "n_experts": 0, "logit_softcap": 0.0, "scale_embed": False,
-            "causal": True, "encoder_layers": 0, "cross_attn_every": 0,
-            "ffn_kind": "swiglu"}
-
-
 @dataclass
 class Run:
     """What the metrics' readers read (``perfbench/metrics/<name>.py``)."""
@@ -58,20 +43,13 @@ class Run:
 
 
 def port_config(cfg: dict):
-    """The port's ArchConfig for the configuration file, checked field by field
-    against the file: a program that departs from it raises."""
+    """The port's ArchConfig for the configuration file, checked against the file
+    by the configuration's reference module (``port_departures``): a program that
+    departs from it raises."""
     from repro_torch.configs import get_config
     fields = {"n_layers": cfg["num_hidden_layers"], **cfg.get("port_overrides", {})}
     arch = dataclasses.replace(get_config(cfg["port_arch"]), **fields)
-    wrong = {}
-    for key, attr in PORT_FIELDS.items():
-        if key in cfg and getattr(arch, attr) != cfg[key]:
-            wrong[key] = (cfg[key], getattr(arch, attr))
-    for attr, value in PORT_OFF.items():
-        if getattr(arch, attr) != value:
-            wrong[attr] = (value, getattr(arch, attr))
-    if tuple(arch.pattern) != tuple(cfg["layer_pattern"]):
-        wrong["layer_pattern"] = (cfg["layer_pattern"], arch.pattern)
+    wrong = spec.reference(cfg).port_departures(cfg, arch)
     if wrong:
         raise ValueError(f"the port's {cfg['port_arch']} departs from {cfg['name']}: "
                          f"{wrong} (file, port)")
@@ -106,16 +84,19 @@ def program_readings(trainer, state, specs, seed, opt, check_steps):
     """Run the first ``check_steps`` steps through ``Trainer.run`` and take the
     program's side of the comparison: the loss of each step (the Trainer's
     history), each leaf's first gradient before clipping (from the moments after
-    one step: m = (1 - b1) g scaled by the clip), and each leaf's change (against
-    the seed's values drawn again).  Returns (state, readings, seconds spent on
-    the readings alone)."""
+    one step: m = (1 - b1) g scaled by the clip), its norm and its projection on
+    the seed's fixed direction (``weights.project``), and each leaf's change
+    (against the seed's values drawn again).  Returns (state, readings, seconds
+    spent on the readings alone)."""
     import torch
     trainer.cfg.steps = 1
     state, hist = trainer.run(state, start_step=0)
     t0 = time.perf_counter()
     gnorm = hist[-1]["grad_norm"]
     clip = min(1.0, opt.clip_norm / max(gnorm, 1e-12))
-    grad = {n: float(m.norm()) / (1 - opt.b1) / clip for n, m in state["opt"].m.items()}
+    moments = state["opt"].m
+    grad = {n: float(m.norm()) / (1 - opt.b1) / clip for n, m in moments.items()}
+    proj = {n: p / (1 - opt.b1) / clip for n, p in weights.project(moments, seed).items()}
     spent = time.perf_counter() - t0
     trainer.cfg.steps = check_steps
     state, hist = trainer.run(state, start_step=1)
@@ -127,7 +108,7 @@ def program_readings(trainer, state, specs, seed, opt, check_steps):
                                             params[specs[0].name].device)}
     losses = [h["loss"] for h in hist[:check_steps]]
     spent += time.perf_counter() - t0
-    return state, reference.Readings(losses, grad, change), spent
+    return state, reference.Readings(losses, grad, proj, change), spent
 
 
 def run(cell: dict, cfg: dict, traffic: dict, limits: dict, metrics: dict,
@@ -247,7 +228,7 @@ def run(cell: dict, cfg: dict, traffic: dict, limits: dict, metrics: dict,
 
     params0 = weights.initial(cfg, specs, seed, device)
     batches = [feed.synthetic_batch(seed, s, B, S, V) for s in range(check_steps)]
-    ref = ref_model.train(cfg, params0, batches, opt)
+    ref = ref_model.train(cfg, params0, batches, opt, seed)
     del params0
     numbers, where = compare.gaps(prog, ref)
     correct, checks = compare.verdict(numbers, limits)

@@ -4,7 +4,8 @@ Every normally drawn parameter is a slice of one ``torch.randn`` call of all the
 entries together, in the parameter type, on a ``torch.Generator`` of the device,
 scaled in place; the rest are ones or zeros.  The same seed on the same device gives
 the same values, so the reference draws its copy again after the program's state is
-gone instead of holding one through the window.
+gone instead of holding one through the window.  :func:`project` draws, on a stream of
+its own, the fixed directions that both sides project the first gradient on.
 """
 
 from __future__ import annotations
@@ -15,6 +16,11 @@ from typing import Iterator
 import torch
 
 from harness.reference import DTYPES, ParamSpec
+
+
+#: mixed into the seed for the stream of :func:`project`'s directions, apart from the
+#: weights'
+DIRECTIONS = 0x2545F4914F6CDD1D
 
 
 def _seed(seed: int) -> int:
@@ -61,3 +67,22 @@ def initial(cfg: dict, specs: list[ParamSpec], seed: int, device) -> dict[str, t
     """The seed's parameters in the configuration's parameter type (the
     reference's copy)."""
     return dict(draw(specs, seed, DTYPES[cfg["param_dtype"]], device))
+
+
+@torch.no_grad()
+def project(tensors: dict[str, torch.Tensor], seed: int) -> dict[str, float]:
+    """``<r, t>`` for every tensor (name -> tensor, all on one device): ``r`` a fixed
+    standard normal direction of the tensor's shape, in float32, drawn from the
+    seed on a stream of its own, one tensor at a time in the order of the names.
+    The same seed, names and shapes on the same device give the same directions,
+    whatever order the dict holds them in."""
+    device = next(iter(tensors.values())).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_seed(seed) ^ DIRECTIONS)
+    out = {}
+    for name in sorted(tensors):
+        t = tensors[name]
+        r = torch.randn(t.numel(), generator=gen, dtype=torch.float32, device=device)
+        out[name] = float(torch.dot(r, t.detach().reshape(-1).float()))
+        del r                                   # one direction held at a time
+    return out

@@ -6,17 +6,19 @@ The bytes a parameter: its gradient read twice (the global norm, then the update
 the parameter read and written once, and the two float32 moments each read and
 written once (16 bytes).  The gradient's type is the parameter's, as the cell runs
 one microbatch.  In ``train.qwen2_7b_l8.b2s4096`` that is 24 bytes over 2.409 G
-parameters: 17.26 ms.  None where no kernel matches (a program without the fused
+parameters: 17.26 ms.  The parameters are those the configuration's reference module
+counts (``params_run``).  None where no kernel matches (a program without the fused
 kernels)."""
 
-from harness import counts, reference, trace
+from harness import counts, reference, spec, trace
 
 MATCH = ("repro_adamw",)
 
 
 def bound_s(cfg: dict) -> float:
     elem = reference.DTYPES[cfg["param_dtype"]].itemsize
-    return reference.params_run(cfg) * (2 * elem + 2 * elem + 16) / counts.PEAK_BYTES_PER_S
+    return spec.reference(cfg).params_run(cfg) * (2 * elem + 2 * elem + 16) \
+        / counts.PEAK_BYTES_PER_S
 
 
 def read(run):

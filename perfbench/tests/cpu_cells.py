@@ -43,5 +43,6 @@ def cell(name: str, limit: float = 1e-3, **changes) -> dict:
     metrics = {trace: spec.metrics_for(bench, "", trace) for trace in (False, True)}
     return {"cell": {"name": f"cpu.{name}", "config": name, "traffic": "cpu", "chips": 1},
             "cfg": reduced_config(name, **changes), "traffic": dict(TRAFFIC),
-            "limits": {k: {"limit": limit} for k in ("loss0_gap", "grad_gap", "change_gap")},
+            "limits": {k: {"limit": limit}
+                       for k in ("loss0_gap", "grad_gap", "grad_proj_gap", "change_gap")},
             "metrics": metrics}

@@ -4,16 +4,31 @@ correct under the limits the cells commit.
 
 At the cell's own size it needs the cell's card, and skips without one (run it on the
 card with ``python -m pytest -q perfbench/tests/test_perfbench_control.py``; about a
-minute a cell).  On the CPU the precisions themselves are checked.
+minute a cell).  On the CPU the precisions themselves are checked, and at the port's
+reduced widths the control's first-order gradient gap against its norm gap.
 """
 
 import pytest
 import torch
 
+import cpu_cells
 from harness import compare, feed, reference, spec, weights
 
 BENCH = spec.benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
+CONFIGS = [c["name"] for c in BENCH["configs"]]
+
+
+def control_numbers(cfg: dict, traffic: dict, seed: int, device: str) -> dict:
+    """Every number of the float8 control against the float32 reference, both the
+    configuration's reference module, on the seed's weights and batches."""
+    model = spec.reference(cfg)
+    B, S, V = traffic["global_batch"], traffic["seq_len"], cfg["vocab_size"]
+    batches = [feed.synthetic_batch(seed, s, B, S, V) for s in range(traffic["check_steps"])]
+    params0 = weights.initial(cfg, model.param_specs(cfg), seed, device)
+    want = model.train(cfg, params0, batches, reference.AdamW(), seed)
+    got = model.train(cfg, params0, batches, reference.AdamW(), seed, pr=reference.FLOAT8)
+    return compare.gaps(got, want)[0]
 
 
 def test_each_precision_rounds_its_class():
@@ -39,14 +54,16 @@ def test_the_control_is_not_correct_at_the_cells_size(name):
     if not torch.cuda.is_available():
         pytest.skip("the control at the cell's size needs its card")
     pieces = spec.resolve(BENCH, name)
-    cfg, traffic = pieces["cfg"], pieces["traffic"]
-    seed = 2**32 + 11
-    specs = reference.param_specs(cfg)
-    B, S, V = traffic["global_batch"], traffic["seq_len"], cfg["vocab_size"]
-    batches = [feed.synthetic_batch(seed, s, B, S, V) for s in range(traffic["check_steps"])]
-    params0 = weights.initial(cfg, specs, seed, "cuda")
-    want = reference.train(cfg, params0, batches, reference.AdamW())
-    got = reference.train(cfg, params0, batches, reference.AdamW(), pr=reference.FLOAT8)
-    numbers, _ = compare.gaps(got, want)
+    numbers = control_numbers(pieces["cfg"], pieces["traffic"], 2**32 + 11, "cuda")
     correct, checks = compare.verdict(numbers, pieces["limits"])
     assert not correct, checks
+
+
+@pytest.mark.parametrize("seed", [2**31 + 5, 2**33 + 7, 12345])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_the_controls_first_order_gap_exceeds_its_norm_gap(name, seed):
+    # the float8 control's gradient error lies mostly across the gradient, which a
+    # norm reads at second order only
+    numbers = control_numbers(cpu_cells.reduced_config(name), dict(cpu_cells.TRAFFIC),
+                              seed, "cpu")
+    assert numbers["grad_proj_gap"] > numbers["grad_gap"], numbers

@@ -1,18 +1,20 @@
 """The yardstick's arithmetic against figures worked by hand (PERF.md's kernel
-table and the configurations' parameter counts)."""
+table and the configurations' parameter counts), and qwen2's figures pinned to the
+values they had before the counts asked the configuration's reference module."""
 
 import math
 
 import pytest
 
-from harness import counts, reference, spec
+from harness import counts, spec
 
 BENCH = spec.benchmark()
 QWEN = spec.config(BENCH, "qwen2_7b_l8")
+MODEL = spec.reference(QWEN)
 #: one attention layer at zamba2-2.7b's heads (32 of head_dim 80) behind a 4096 window
-HD80 = {"name": "hd80", "num_hidden_layers": 1, "layer_pattern": ["attn"],
-        "num_attention_heads": 32, "num_key_value_heads": 32, "head_dim": 80,
-        "attention_window": 4096, "torch_dtype": "bfloat16"}
+HD80 = {"name": "hd80", "reference": "reference", "num_hidden_layers": 1,
+        "layer_pattern": ["attn"], "num_attention_heads": 32, "num_key_value_heads": 32,
+        "head_dim": 80, "attention_window": 4096, "torch_dtype": "bfloat16"}
 TRAFFIC = spec.traffic("b2s4096")
 
 
@@ -45,9 +47,9 @@ def test_qwen2_forward_bound_is_operations():
 
 def test_parameter_counts():
     # qwen2-7b at 8 layers: 2.409 G parameters (a tied head), each run once a step
-    held = sum(math.prod(s.shape) for s in reference.param_specs(QWEN))
+    held = sum(math.prod(s.shape) for s in MODEL.param_specs(QWEN))
     assert held == pytest.approx(2.409e9, rel=1e-3)
-    assert reference.params_run(QWEN) == held
+    assert MODEL.params_run(QWEN) == held
 
 
 def test_step_flops_match_the_smoke_runs_count():
@@ -55,7 +57,27 @@ def test_step_flops_match_the_smoke_runs_count():
     T = 2 * 4096
     pairs = 4096 * 4097 // 2
     assert counts.step_flops(QWEN, TRAFFIC) == pytest.approx(
-        6 * reference.params_run(QWEN) * T + 12 * 128 * pairs * 2 * 28 * 8)
+        6 * MODEL.params_run(QWEN) * T + 12 * 128 * pairs * 2 * 28 * 8)
     # qwen2-7b at 8 layers: 1.18e14 operations a step in the products, 5.8e12 in
     # attention
     assert counts.step_flops(QWEN, TRAFFIC) == pytest.approx(1.18e14 + 5.8e12, rel=0.01)
+
+
+def qwen2_figures() -> dict:
+    return {"step_flops": counts.step_flops(QWEN, TRAFFIC),
+            "flash_fwd_bound_s": counts.flash_bound_s(QWEN, TRAFFIC, backward=False),
+            "flash_bwd_bound_s": counts.flash_bound_s(QWEN, TRAFFIC, backward=True),
+            "adamw_bound_s": spec.reader("adamw_roofline").bound_s(QWEN),
+            "params_run": MODEL.params_run(QWEN)}
+
+
+@pytest.mark.parametrize("figure, want", [
+    ("step_flops", 124203785256960.0),
+    ("flash_fwd_bound_s", 0.0019460213454560163),
+    ("flash_bwd_bound_s", 0.00486505336364004),
+    ("adamw_bound_s", 0.017261826598208956),
+    ("params_run", 2409463296),
+])
+def test_qwen2_figures_are_pinned(figure, want):
+    # exactly what the harness computed while it called the dense model by name
+    assert qwen2_figures()[figure] == want

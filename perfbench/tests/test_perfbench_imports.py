@@ -13,7 +13,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 #: the files that drive the program; every other one is the yardstick
 PROGRAM_SIDE = {"harness/train_cell.py", "calibrate.py", "tests/cpu_cells.py",
            "tests/test_perfbench_reference.py", "tests/test_perfbench_faults.py",
-           "tests/test_perfbench_control.py"}
+           "tests/test_perfbench_control.py", "tests/test_perfbench_reference_module.py"}
 
 
 def top_level_imports(path: Path) -> set[str]:

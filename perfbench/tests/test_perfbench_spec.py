@@ -78,7 +78,7 @@ def test_one_layer_name_per_layer():
 def test_every_piece_a_cell_names_is_there(w):
     pieces = spec.config(BENCH, w["config"]), spec.traffic(w["traffic"]), spec.limits(w["name"])
     cfg, _, limits = pieces
-    assert set(limits) <= {"loss0_gap", "grad_gap", "change_gap"} and limits
+    assert set(limits) <= {"loss0_gap", "grad_gap", "grad_proj_gap", "change_gap"} and limits
     entry = next(c for c in BENCH["configs"] if c["name"] == w["config"])
     assert entry["file"].startswith("perfbench/configs/")
     assert cfg["name"] == entry["name"] and cfg["reduced"] == entry["reduced"]
