@@ -18,7 +18,10 @@ average taken at the phase's start and end (read only, never a check):
   kernels  holds each hand-written kernel against its plain PyTorch version on the
            card, at the reference's test cases and cases across the wgmma kernels'
            tile edges (fp32, bf16, fp16; at head_dim 80 ragged Sq and Skv, Sq < Skv,
-           the window's edge, no mask with Sq > Skv and a softcap) and at the shapes
+           the window's edge, no mask with Sq > Skv and a softcap; at head_dim 224
+           the same at its softmax scale 112^-0.5 and zamba2-7b's training shape
+           (2, 4096, 32/32); softmax scales other than 1/sqrt(hd) at head_dim 64,
+           80, 128 and 256, with the cases' launches by head_dim) and at the shapes
            the serving and training paths give it: the forwards, the attention
            forward's lse, and the two backwards (dq, dk, dv; dx, dw); records which
            flash variant each case launched, forward and backward (16-bit wgmma
@@ -265,6 +268,26 @@ FLASH_HD80_CASES = [
     (2, 191, 321, 8, 2, 80, True, 0),
     (1, 300, 300, 4, 4, 80, True, 100),
     (1, 200, 130, 4, 4, 80, False, 0),
+]
+# Head_dim 224 (zamba2-7b's shared attention, run on the head_dim-256 kernels with
+# 224-column tensor maps) at its softmax scale (224/2)^-0.5: a row and a key past a
+# tile, ragged Sq < Skv with GQA, a window across the 64-key tiles, no mask with
+# Sq > Skv, and the training shape (2, 4096, 32/32) causal.  Held forward, lse and
+# backward in fp32, bf16 and fp16.
+SCALE_HD224 = 112 ** -0.5
+FLASH_HD224_CASES = [
+    (1, 129, 129, 4, 4, 224, True, 0),
+    (2, 150, 201, 8, 2, 224, True, 0),
+    (1, 260, 260, 4, 2, 224, True, 90),
+    (1, 200, 130, 4, 4, 224, False, 0),
+    (2, 4096, 4096, 32, 32, 224, True, 0),
+]
+# A softmax scale other than 1/sqrt(hd) at head_dims compiled before 224: (case, scale)
+FLASH_SCALE_CASES = [
+    ((1, 200, 200, 4, 2, 128, True, 0), 0.05),
+    ((2, 191, 321, 8, 2, 80, True, 0), 0.3),
+    ((1, 300, 300, 4, 4, 64, True, 100), 0.2),
+    ((1, 130, 130, 2, 2, 256, False, 0), 0.1),
 ]
 # softcap 20 on scores scaled by 3 x 3, as the reference's test has it
 FLASH_SOFTCAP_CASES = [(1, 64, 64, 2, 2, 32, True, 0), (1, 200, 200, 4, 2, 128, True, 0),
@@ -664,11 +687,12 @@ def run(args, torch) -> None:
         float32, wgmma in 16 bits."""
         return "tf32x3" if dtype == torch.float32 else "sm90_wgmma"
 
-    def flash_case(case, dtype, tol, scale=1.0, softcap=0.0) -> dict:
-        """One checked call; records the variant it launched and fails if that is
-        not the one the split by shape names."""
+    def flash_case(case, dtype, tol, scale=1.0, softcap=0.0, sm_scale=None) -> dict:
+        """One checked call at softmax scale ``sm_scale`` (1/sqrt(hd) when None);
+        records the variant it launched and fails if that is not the one the split
+        by shape names."""
         q, k, v = flash_inputs(case, dtype, scale)
-        kw = dict(causal=case[6], window=case[7], softcap=softcap)
+        kw = dict(causal=case[6], window=case[7], softcap=softcap, scale=sm_scale)
         before = ops.flash_launches_by_variant()
         got = ops.flash_attention(q, k, v, **kw)
         after = ops.flash_launches_by_variant()
@@ -676,12 +700,16 @@ def run(args, torch) -> None:
         want_variant = expected_variant(dtype)
         if ran != [want_variant] or flash_mod.variant(dtype, case[5]) != want_variant:
             fail(f"flash {case} {dtype}: launched {ran}, expected [{want_variant!r}]")
-        name = f"flash {case} {dtype}" + (f" softcap {softcap:g}" if softcap else "")
+        tags = ([f"softcap {softcap:g}"] if softcap else []) + \
+            ([f"scale {sm_scale:.6g}"] if sm_scale is not None else [])
+        name = f"flash {case} {dtype}" + "".join(" " + t for t in tags)
         err = compare(name, got, truth(q, k, v, **kw), tol)
-        return {"case": list(case) + ([f"softcap {softcap:g}"] if softcap else []),
+        del q, k, v, got
+        return {"case": list(case) + tags,
                 "dtype": str(dtype), "variant": ran[0] if len(ran) == 1 else ran,
                 "max_abs_err": err, "tol": tol}
 
+    hd_launches_before = ops.flash_launches_by_head_dim()
     flash_cases = []
     for dtype, tol in ((torch.float32, TOL_FLASH_FP32),
                        (torch.bfloat16, TOL_16BIT), (torch.float16, TOL_16BIT)):
@@ -691,34 +719,43 @@ def run(args, torch) -> None:
         stol = TOL_FLASH_SOFTCAP if dtype == torch.float32 else TOL_16BIT
         for case in FLASH_SOFTCAP_CASES:
             flash_cases.append(flash_case(case, dtype, stol, scale=3.0, softcap=20.0))
+        for case in FLASH_HD224_CASES:
+            flash_cases.append(flash_case(case, dtype, tol, sm_scale=SCALE_HD224))
+        for case, sm_scale in FLASH_SCALE_CASES:
+            flash_cases.append(flash_case(case, dtype, tol, sm_scale=sm_scale))
 
     # Backward kernels, and the forward's lse, against the plain versions held in fp32
-    def flash_bwd_case(case, dtype, scale=1.0, softcap=0.0) -> dict:
+    def flash_bwd_case(case, dtype, scale=1.0, softcap=0.0, sm_scale=None) -> dict:
         fp32 = dtype == torch.float32
         tol, lse_tol = (TOL_BWD_FP32, TOL_LSE_FP32) if fp32 else (TOL_16BIT, TOL_LSE_16BIT)
         q, k, v = flash_inputs(case, dtype, scale)
         do = randn(q.shape, dtype)
         causal, window = case[6], case[7]
-        o, lse = flash_mod.launch_forward(q, k, v, causal, window, softcap, with_lse=True)
+        o, lse = flash_mod.launch_forward(q, k, v, causal, window, softcap, with_lse=True,
+                                          scale=sm_scale)
         before = ops.flash_bwd_launches_by_variant()
-        grads = flash_mod.launch_backward(q, k, v, o, lse, do, causal, window, softcap)
+        grads = flash_mod.launch_backward(q, k, v, o, lse, do, causal, window, softcap,
+                                          sm_scale)
         after = ops.flash_bwd_launches_by_variant()
         ran = [key for key in after if after[key] != before[key]]
         want_variant = expected_variant(dtype)
         if ran != [want_variant] or flash_mod.bwd_variant(dtype, case[5]) != want_variant:
             fail(f"flash backward {case} {dtype}: launched {ran}, expected [{want_variant!r}]")
-        kw = dict(causal=causal, window=window, softcap=softcap)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=sm_scale)
         qf, kf, vf = q.float(), k.float(), v.float()
         o_ref = ops.mha_reference(qf, kf, vf, **kw)
         lse_ref = ops.flash_attention_lse_reference(qf, kf, **kw)
         want = ops.flash_attention_bwd_reference(qf, kf, vf, o_ref, lse_ref, do.float(), **kw)
-        name = f"flash backward {case} {dtype}" + (f" softcap {softcap:g}" if softcap else "")
+        tags = ([f"softcap {softcap:g}"] if softcap else []) + \
+            ([f"scale {sm_scale:.6g}"] if sm_scale is not None else [])
+        name = f"flash backward {case} {dtype}" + "".join(" " + t for t in tags)
         errs = {"lse": compare_share(name + " lse", lse, lse_ref, lse_tol)}
         for gname, got, ref_ in zip(("dq", "dk", "dv"), grads, want):
             errs[gname] = compare_share(f"{name} {gname}", got, ref_, tol)
         worst = max(float((got.float() - ref_).abs().max()) for got, ref_ in zip(grads, want))
-        del q, k, v, do, o, lse, grads, want, o_ref, lse_ref
-        return {"case": list(case) + ([f"softcap {softcap:g}"] if softcap else []),
+        del q, k, v, do, o, lse, grads, want, o_ref, lse_ref, qf, kf, vf
+        torch.cuda.empty_cache()
+        return {"case": list(case) + tags,
                 "dtype": str(dtype), "variant": ran[0] if len(ran) == 1 else ran,
                 "max_err_share": errs, "max_abs_err": worst, "tol": tol, "lse_tol": lse_tol}
 
@@ -729,6 +766,26 @@ def run(args, torch) -> None:
             flash_bwd_cases.append(flash_bwd_case(case, dtype))
         for case in FLASH_SOFTCAP_CASES:
             flash_bwd_cases.append(flash_bwd_case(case, dtype, scale=3.0, softcap=20.0))
+        for case in FLASH_HD224_CASES:
+            flash_bwd_cases.append(flash_bwd_case(case, dtype, sm_scale=SCALE_HD224))
+        for case, sm_scale in FLASH_SCALE_CASES:
+            flash_bwd_cases.append(flash_bwd_case(case, dtype, sm_scale=sm_scale))
+
+    # The cases' launches by direction, head_dim and variant: head_dim 224 runs on
+    # the wgmma kernels in 16 bits and on tf32x3 in float32, nowhere else (each
+    # backward case launches one forward too)
+    hd_launches_after = ops.flash_launches_by_head_dim()
+    case_launches = {way: {key: n - hd_launches_before[way].get(key, 0)
+                           for key, n in table.items()
+                           if n != hd_launches_before[way].get(key, 0)}
+                     for way, table in hd_launches_after.items()}
+    n224 = len(FLASH_HD224_CASES)
+    want_224 = {"forward": {"224/sm90_wgmma": 4 * n224, "224/tf32x3": 2 * n224},
+                "backward": {"224/sm90_wgmma": 2 * n224, "224/tf32x3": n224}}
+    got_224 = {way: {key: n for key, n in table.items() if key.startswith("224/")}
+               for way, table in case_launches.items()}
+    if got_224 != want_224:
+        fail(f"flash at head_dim 224: launches {got_224}, expected {want_224}")
 
     # A call a TMA kernel cannot take must raise, never run another variant: q one
     # element past a 16-byte boundary (the wrapper refuses it first, so the C
@@ -755,7 +812,8 @@ def run(args, torch) -> None:
             q_off.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, case[0],
             case[1], case[2], case[3], case[4], case[5], *q_off.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], 1, 0, 0.0,
-            _build.DTYPE_CODES[dtype], 0, torch.cuda.current_stream().cuda_stream)
+            flash_mod._scale(case[5], None), _build.DTYPE_CODES[dtype], 0,
+            torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         try:
             _build.check(code, "flash_attention")
@@ -785,7 +843,8 @@ def run(args, torch) -> None:
             dq=grads[0].data_ptr(), dk=grads[1].data_ptr(),
             dv=grads[2].data_ptr(), stream=torch.cuda.current_stream().cuda_stream,
             B=case[0], Sq=case[1], Skv=case[2], H=case[3], KV=case[4], hd=case[5], causal=1,
-            window=0, softcap=0.0, dtype=_build.DTYPE_CODES[dtype], device=0)
+            window=0, softcap=0.0, scale=flash_mod._scale(case[5], None),
+            dtype=_build.DTYPE_CODES[dtype], device=0)
         for name, t in zip(_build.FLASH_BWD_TENSORS, (q_off, k, v, o, do, *grads)):
             for i, part in enumerate(("sb", "ss", "sh")):
                 setattr(call, f"{name}_{part}", t.stride(i))
@@ -1045,7 +1104,7 @@ def run(args, torch) -> None:
         x_codes["c_forward"] = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), x_out[0].data_ptr(), None, *xcase[:6],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *x_out[0].stride()[:3], 1, 0,
-            0.0, _build.DTYPE_CODES[bf16], 0, torch.cuda.current_stream().cuda_stream)
+            0.0, 1.0, _build.DTYPE_CODES[bf16], 0, torch.cuda.current_stream().cuda_stream)
         _build.check(x_codes["c_forward"], "flash_attention")
 
     def c_backward():
@@ -1055,7 +1114,7 @@ def run(args, torch) -> None:
             dq_acc=None, dq=x_out[1].data_ptr(), dk=x_out[2].data_ptr(),
             dv=x_out[3].data_ptr(), stream=torch.cuda.current_stream().cuda_stream,
             B=1, Sq=128, Skv=128, H=4, KV=4, hd=UNCOMPILED_HEAD_DIM, causal=1, window=0,
-            softcap=0.0, dtype=_build.DTYPE_CODES[bf16], device=0)
+            softcap=0.0, scale=1.0, dtype=_build.DTYPE_CODES[bf16], device=0)
         for name, t_ in zip(_build.FLASH_BWD_TENSORS, (q, k, v, q, q, *x_out[1:])):
             for i, part in enumerate(("sb", "ss", "sh")):
                 setattr(call, f"{name}_{part}", t_.stride(i))
@@ -1588,6 +1647,7 @@ def run(args, torch) -> None:
                        "rmsnorm_bwd_fp32_share": TOL_RMSNORM_BWD_FP32,
                        "lse_fp32_share": TOL_LSE_FP32, "lse_16bit_share": TOL_LSE_16BIT},
         "flash_cases": flash_cases, "flash_refusal": refusal,
+        "flash_case_launches_by_head_dim": case_launches,
         "flash_bwd_refusal": bwd_refusal, "flash_uncompiled_head_dim": uncompiled,
         "rmsnorm_cases": rms_cases,
         "flash_bwd_cases": flash_bwd_cases, "rmsnorm_bwd_cases": rms_bwd_cases,

@@ -24,6 +24,12 @@ ARCH_IDS: tuple[str, ...] = (
     "xlstm_125m",
 )
 
+#: architectures the port runs beyond the ten the JAX package mirrors
+#: (``ARCH_IDS``); ``get_config`` takes them too
+EXTRA_ARCH_IDS: tuple[str, ...] = (
+    "zamba2_7b",
+)
+
 # assignment ids (with dashes/dots) -> module names
 ALIASES = {
     "gemma-7b": "gemma_7b",
@@ -36,15 +42,17 @@ ALIASES = {
     "zamba2-2.7b": "zamba2_2p7b",
     "llama-3.2-vision-11b": "llama_3p2_vision_11b",
     "xlstm-125m": "xlstm_125m",
+    "zamba2-7b": "zamba2_7b",
 }
 
 
 def get_config(arch: str) -> ArchConfig:
     mod = ALIASES.get(arch, arch).replace("-", "_").replace(".", "p")
-    if mod not in ARCH_IDS:
+    if mod not in ARCH_IDS + EXTRA_ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 
 def all_configs() -> dict[str, ArchConfig]:
+    """The ten architectures of ``ARCH_IDS``."""
     return {a: get_config(a) for a in ARCH_IDS}

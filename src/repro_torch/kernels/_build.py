@@ -124,8 +124,8 @@ class FlashBwdCall(ctypes.Structure):
                 + [(n, _I) for n in ("B", "Sq", "Skv", "H", "KV", "hd")]
                 + [(f"{t}_{s}", _LL) for t in FLASH_BWD_TENSORS
                    for s in ("sb", "ss", "sh")]
-                + [("causal", _I), ("window", _I), ("softcap", _F), ("dtype", _I),
-                   ("device", _I)])
+                + [("causal", _I), ("window", _I), ("softcap", _F), ("scale", _F),
+                   ("dtype", _I), ("device", _I)])
 
 
 class AdamwCall(ctypes.Structure):
@@ -146,7 +146,7 @@ SIGNATURES = {
     "repro_rmsnorm_fwd": (_I, [_P]),
     "repro_rmsnorm_bwd": (_I, [_P]),
     "repro_flash_attention_fwd": (
-        _I, [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _I, _I, _P]),
+        _I, [_P] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _F, _I, _I, _P]),
     "repro_flash_attention_variant": (_I, [_I, _I]),
     "repro_flash_attention_bwd": (_I, [_P]),
     "repro_flash_attention_bwd_variant": (_I, [_I, _I]),

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py (_flash_kernel,
 // launched by _flash_fwd_kernel_call): q (B,Sq,H,hd), k/v (B,Skv,KV,hd), H % KV == 0,
-// scale 1/sqrt(hd), optional softcap tanh(s/c)*c applied BEFORE the mask, causal
+// scale given by the caller (1/sqrt(hd) unless the model says otherwise), optional softcap tanh(s/c)*c applied BEFORE the mask, causal
 // mask qpos >= kpos with qpos offset by Skv - Sq, window mask qpos - kpos < window
 // (applied whether or not causal is set), fp32 (acc, m, l), p forced to 0 where
 // s <= -5e29, result acc / max(l, 1e-30), and on request lse = m + log(l) per row
@@ -52,8 +52,8 @@ extern "C" int repro_flash_attention_fwd(
     int H, int KV,
     int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int causal, int window, float softcap, int dtype,
-    int device, void* stream) {
+    long long o_ss, long long o_sh, int causal, int window, float softcap, float scale,
+    int dtype, int device, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   flash::Params p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
@@ -64,7 +64,8 @@ extern "C" int repro_flash_attention_fwd(
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.causal = causal; p.window = window;
   p.softcap = softcap;
-  p.scale = 1.0f / sqrtf((float)hd);
+  p.scale = scale;
+  p.hd = hd;
   flash::DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -35,6 +35,7 @@ struct Params {
   long long o_sb, o_ss, o_sh;
   int causal, window;
   float softcap, scale;
+  int hd;  // the tensors' head_dim: a kernel of a wider one loads and stores hd columns
 };
 
 // One backward call: the forward's inputs, its output o and per-row lse, dO, and the
@@ -62,6 +63,7 @@ struct BwdParams {
   long long do_sb, do_ss, do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
   int causal, window;
   float softcap, scale;
+  int hd;  // as Params::hd
 };
 
 // The wgmma backward's padded query count: every query tile it loads (64 or 128
@@ -80,9 +82,15 @@ enum Variant { kTf32x3 = 0, kSm90Wgmma = 1 };
 // under the 32-byte swizzle (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu):
 // head_dim 80 (zamba2's shared attention), whose 160-byte row is wider than one
 // 128-byte swizzle atom, as one of each; 32 and 16, narrower than one, as narrow boxes
-// only (the forward's one 32-column box under the 64-byte swizzle at 32).
-constexpr int kHeadDims[] = {16, 32, 64, 80, 128, 256};
-constexpr int kBwdHeadDims[] = {16, 32, 64, 80, 128, 256};
+// only (the forward's one 32-column box under the 64-byte swizzle at 32).  Head_dim
+// 224 (zamba2-7b's shared attention) runs on head_dim 256's kernels (kernel_head_dim)
+// with tensor maps 224 columns wide: TMA fills the last 32 columns of every tile it
+// loads with zeros, which add nothing to a product, and the stores leave them out.
+constexpr int kHeadDims[] = {16, 32, 64, 80, 128, 224, 256};
+constexpr int kBwdHeadDims[] = {16, 32, 64, 80, 128, 224, 256};
+
+// The head_dim whose 16-bit kernels run a call at head_dim hd.
+constexpr int kernel_head_dim(int hd) { return hd == 224 ? 256 : hd; }
 
 template <int N>
 inline bool one_of(const int (&set)[N], int hd) {

@@ -8,7 +8,7 @@
 // forward's inputs, its output o and its per-row log-sum-exp lse (the forward,
 // flash_attention.cu, writes it):
 //   D  = rowsum(dO o O)                         (fp32, one value per query row)
-//   s  = q k^T * scale, capped s = tanh(s / c) * c when softcap c != 0
+//   s  = q k^T * scale (the caller's), capped s = tanh(s / c) * c when softcap c != 0
 //   p  = exp(s - lse) where the mask (causal / window / ragged tail) lets the pair
 //        through, else 0
 //   dv = p^T dO      dp = dO v^T      ds = p o (dp - D) [o (1 - tanh^2) when capped]
@@ -89,6 +89,7 @@ struct FlashBwdCall {
   int causal;
   int window;
   float softcap;
+  float scale;
   int dtype;
   int device;
 };
@@ -125,7 +126,8 @@ extern "C" int repro_flash_attention_bwd(const FlashBwdCall* c) {
   p.dv_sb = c->dv_sb; p.dv_ss = c->dv_ss; p.dv_sh = c->dv_sh;
   p.causal = c->causal; p.window = c->window;
   p.softcap = c->softcap;
-  p.scale = 1.0f / sqrtf((float)c->hd);
+  p.scale = c->scale;
+  p.hd = c->hd;
   flash::DeviceGuard guard(c->device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(c->stream);

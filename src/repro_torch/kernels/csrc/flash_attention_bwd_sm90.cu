@@ -248,7 +248,7 @@ __global__ void flash_bwd_sm90_prep_kernel(const BwdParams p) {
   // E consecutive elements a lane (HD / 32 at 64, 128 and 256; 4 at 80, 32 and 16:
   // lanes 0-19, 0-7, 0-3), one 4-, 8- or 16-byte load each
   constexpr int E = HD % 32 == 0 && HD >= 64 ? HD / 32 : 4;
-  if (row < p.Sq && lane < HD / E) {
+  if (row < p.Sq && lane < p.hd / E) {  // p.hd: a narrower head on HD's kernels
     using V = typename std::conditional<
         E == 8, uint4, typename std::conditional<E == 4, uint2, uint32_t>::type>::type;
     const T* o = static_cast<const T*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh + lane * E;
@@ -816,6 +816,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           T* vrow = dvg + (long long)key * p.dv_ss + tq * 2;
 #pragma unroll
           for (int jj = 0; jj < kKVCols / 8; ++jj) {
+            if (C::kWide && kvc0 + jj * 8 >= p.hd) continue;  // a narrower head's columns only
             *reinterpret_cast<uint32_t*>(krow + jj * 8) =
                 Wg<T>::pack(dk[4 * jj + 2 * r] * p.scale, dk[4 * jj + 2 * r + 1] * p.scale);
             *reinterpret_cast<uint32_t*>(vrow + jj * 8) =
@@ -1083,7 +1084,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           T* qrow = dqg + (long long)row * p.dq_ss + tq * 2;
 #pragma unroll
           for (int jj = 0; jj < 16; ++jj)
-            *reinterpret_cast<uint32_t*>(qrow + jj * 8) =
+            if (128 * c + jj * 8 < p.hd)  // a narrower head's columns only
+              *reinterpret_cast<uint32_t*>(qrow + jj * 8) =
                 Wg<T>::pack(dq[4 * jj + 2 * r] * p.scale, dq[4 * jj + 2 * r + 1] * p.scale);
         }
       }
@@ -1092,7 +1094,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <typename T, int HD>
-int launch(const BwdParams& p, CUtensorMapDataType type, cudaStream_t st) {
+int launch_hd(const BwdParams& p, CUtensorMapDataType type, cudaStream_t st) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -4;
   constexpr int BM = Cfg<HD>::BM, kBN = Cfg<HD>::kBN;
@@ -1100,19 +1102,19 @@ int launch(const BwdParams& p, CUtensorMapDataType type, cudaStream_t st) {
   // 16-column boxes' maps stay zeros where a head has none (the kernel never reads them)
   CUtensorMap tq{}, tk{}, tv{}, tdo{}, nq{}, nk{}, nv{}, ndo{};
   if (Cfg<HD>::kBoxes64 > 0 &&
-      (!encode(fn, &tq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, BM) ||
-       !encode(fn, &tdo, p.dout, type, HD, p.Sq, p.H, p.B, p.do_ss, p.do_sh, p.do_sb, BM) ||
-       !encode(fn, &tk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
-       !encode(fn, &tv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN)))
+      (!encode(fn, &tq, p.q, type, p.hd, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, BM) ||
+       !encode(fn, &tdo, p.dout, type, p.hd, p.Sq, p.H, p.B, p.do_ss, p.do_sh, p.do_sb, BM) ||
+       !encode(fn, &tk, p.k, type, p.hd, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
+       !encode(fn, &tv, p.v, type, p.hd, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN)))
     return -3;
   constexpr int n16 = kNarrowCols;
   constexpr CUtensorMapSwizzle sw32 = CU_TENSOR_MAP_SWIZZLE_32B;
   if (Cfg<HD>::kBoxes16 > 0 &&
-      (!encode(fn, &nq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, BM, n16, sw32) ||
-       !encode(fn, &ndo, p.dout, type, HD, p.Sq, p.H, p.B, p.do_ss, p.do_sh, p.do_sb, BM, n16,
+      (!encode(fn, &nq, p.q, type, p.hd, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, BM, n16, sw32) ||
+       !encode(fn, &ndo, p.dout, type, p.hd, p.Sq, p.H, p.B, p.do_ss, p.do_sh, p.do_sb, BM, n16,
                sw32) ||
-       !encode(fn, &nk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN, n16, sw32) ||
-       !encode(fn, &nv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN, n16, sw32)))
+       !encode(fn, &nk, p.k, type, p.hd, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN, n16, sw32) ||
+       !encode(fn, &nv, p.v, type, p.hd, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN, n16, sw32)))
     return -3;
   auto kern = flash_bwd_sm90_kernel<T, HD>;
   constexpr int smem = Cfg<HD>::kAlloc;
@@ -1159,6 +1161,13 @@ int launch(const BwdParams& p, CUtensorMapDataType type, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// Head_dim HD's call on the kernels of kernel_head_dim(HD): itself, or 224 on 256's
+// with tensor maps of p.hd columns.
+template <typename T, int HD>
+int launch(const BwdParams& p, CUtensorMapDataType type, cudaStream_t st) {
+  return launch_hd<T, kernel_head_dim(HD)>(p, type, st);
+}
+
 }  // namespace
 
 int launch_bwd_sm90(const BwdParams& p, int hd, int dtype, cudaStream_t st) {
@@ -1168,6 +1177,7 @@ int launch_bwd_sm90(const BwdParams& p, int hd, int dtype, cudaStream_t st) {
     if (hd == 64) return launch<__nv_bfloat16, 64>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 80) return launch<__nv_bfloat16, 80>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 128) return launch<__nv_bfloat16, 128>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+    if (hd == 224) return launch<__nv_bfloat16, 224>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 256) return launch<__nv_bfloat16, 256>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   } else if (dtype == 2) {
     if (hd == 16) return launch<__half, 16>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
@@ -1175,6 +1185,7 @@ int launch_bwd_sm90(const BwdParams& p, int hd, int dtype, cudaStream_t st) {
     if (hd == 64) return launch<__half, 64>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 80) return launch<__half, 80>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 128) return launch<__half, 128>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
+    if (hd == 224) return launch<__half, 224>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 256) return launch<__half, 256>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
   }
   return -1;

@@ -49,7 +49,7 @@
 //     the query steps that see its keys; it computes S^T = K Q^T and dP^T = V dO^T, so
 //     that P^T and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q,
 //     with dK and dV in registers and the groups taking half of each step's rows.  At
-//     head_dim 256 those accumulators do not fit a warp's registers at 16 keys: the
+//     head_dim 224 and 256 those accumulators do not fit a warp's registers at 16 keys: the
 //     tile is 32 keys, two warps of a group on each 16, each holding half of the
 //     columns (and each computing S^T and dP^T in full).  Head_dims up to 64 take the
 //     same 32-key tiles, so that a short sequence (launch_reduced's 256 keys) spreads
@@ -61,8 +61,8 @@
 //   * the mask is applied only where a warp's rows and keys cross its edge
 //     (all_visible).
 // Tile sizes per head_dim (FwdCfg, DkdvCfg, DqCfg) keep a block of 8 warps within 227
-// KB of shared memory; at head_dim 256 the forward takes 32-key tiles, pass A 32-row
-// steps and pass B 16-key tiles.
+// KB of shared memory; at head_dim 224 and 256 the forward takes 32-key tiles, pass A
+// 32-row steps and pass B 16-key tiles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -297,7 +297,7 @@ __device__ __forceinline__ void merge_sum(float (&acc)[N][4], float* x, int grp,
 template <int HD>
 struct FwdCfg {
   static constexpr int BM = 16 * kWarps;               // query rows a block
-  static constexpr int BN = HD == 256 ? 32 : 64;       // keys a tile, half a group
+  static constexpr int BN = HD >= 224 ? 32 : 64;       // keys a tile, half a group
   static constexpr int kStages = 2;                    // K/V tiles in flight
   static constexpr int kQ = BM * HD, kTile = BN * HD;  // floats
   static constexpr int kBars = 1 + kStages;            // Q, each K/V stage
@@ -468,10 +468,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // each group.
 template <int HD>
 struct DkdvCfg {
-  static constexpr int kSplit = HD <= 64 || HD == 256 ? 2 : 1;  // warps sharing 16 keys
+  static constexpr int kSplit = HD <= 64 || HD >= 224 ? 2 : 1;  // warps sharing 16 keys
   static constexpr int BN = 16 * kWarps / kSplit;
   static constexpr int kCols = HD / kSplit;             // dk / dv columns a warp holds
-  static constexpr int BMQ = HD == 256 ? 32 : 64;
+  static constexpr int BMQ = HD >= 224 ? 32 : 64;
   static constexpr int kStages = 2;                      // Q/dO steps in flight
   static constexpr int kKV = BN * HD, kStep = BMQ * HD;  // floats
   static constexpr int kBars = 1 + kStages;              // K/V, each Q/dO stage
@@ -596,7 +596,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int HD>
 struct DqCfg {
   static constexpr int BM = 16 * kWarps;
-  static constexpr int BN = HD == 256 ? 16 : 64;
+  static constexpr int BN = HD >= 224 ? 16 : 64;
   static constexpr int kStages = 2;                       // K/V tiles in flight
   static constexpr int kRows = BM * HD, kTile = BN * HD;  // floats
   static constexpr int kBars = 1 + kStages;               // Q/dO, each K/V stage
@@ -805,6 +805,7 @@ int launch_fwd_tf32x3(const Params& p, int hd, cudaStream_t st) {
     case 64: return launch_fwd<64>(p, st);
     case 80: return launch_fwd<80>(p, st);
     case 128: return launch_fwd<128>(p, st);
+    case 224: return launch_fwd<224>(p, st);
     case 256: return launch_fwd<256>(p, st);
     default: return -1;
   }
@@ -817,6 +818,7 @@ int launch_bwd_tf32x3(const BwdParams& p, int hd, cudaStream_t st) {
     case 64: return launch_bwd<64>(p, st);
     case 80: return launch_bwd<80>(p, st);
     case 128: return launch_bwd<128>(p, st);
+    case 224: return launch_bwd<224>(p, st);
     case 256: return launch_bwd<256>(p, st);
     default: return -1;
   }

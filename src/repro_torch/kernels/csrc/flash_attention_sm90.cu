@@ -608,8 +608,9 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
           T* orow = og + (long long)row[r] * p.o_ss + tq * 2;
 #pragma unroll
           for (int jj = 0; jj < HD / 8; ++jj)
-            *reinterpret_cast<uint32_t*>(orow + jj * 8) =
-                Wg<T>::pack(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+            if (!C::kWide || jj * 8 < p.hd)  // a narrower head's columns only
+              *reinterpret_cast<uint32_t*>(orow + jj * 8) =
+                  Wg<T>::pack(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
           // m_row is in units of the scaled score (the exponentials only run in
           // base 2), so this is the natural-log lse the backward expects
           if (p.lse != nullptr && tq == 0)
@@ -624,7 +625,7 @@ __global__ void __launch_bounds__(Cfg<HD>::kThreads, 1)
 // ------------------------------------------------------------------------- host
 
 template <typename T, int HD>
-int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
+int launch_hd(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -4;
   // the 64-column boxes' maps and the narrow boxes' (zeros where a head has none
@@ -632,17 +633,17 @@ int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
   CUtensorMap tq{}, tk{}, tv{}, nq{}, nk{}, nv{};
   constexpr int kBN = Cfg<HD>::kBN, kBM = Cfg<HD>::kBM;
   if (Cfg<HD>::kBoxes64 > 0 &&
-      (!encode(fn, &tq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM) ||
-       !encode(fn, &tk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
-       !encode(fn, &tv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN)))
+      (!encode(fn, &tq, p.q, type, p.hd, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM) ||
+       !encode(fn, &tk, p.k, type, p.hd, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN) ||
+       !encode(fn, &tv, p.v, type, p.hd, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN)))
     return -3;
   constexpr int nc = Cfg<HD>::kNarrow;
   constexpr CUtensorMapSwizzle sw =
       nc == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   if (Cfg<HD>::kBoxesN > 0 &&
-      (!encode(fn, &nq, p.q, type, HD, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM, nc, sw) ||
-       !encode(fn, &nk, p.k, type, HD, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN, nc, sw) ||
-       !encode(fn, &nv, p.v, type, HD, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN, nc, sw)))
+      (!encode(fn, &nq, p.q, type, p.hd, p.Sq, p.H, p.B, p.q_ss, p.q_sh, p.q_sb, kBM, nc, sw) ||
+       !encode(fn, &nk, p.k, type, p.hd, p.Skv, p.KV, p.B, p.k_ss, p.k_sh, p.k_sb, kBN, nc, sw) ||
+       !encode(fn, &nv, p.v, type, p.hd, p.Skv, p.KV, p.B, p.v_ss, p.v_sh, p.v_sb, kBN, nc, sw)))
     return -3;
   auto kern = flash_fwd_sm90_kernel<T, HD>;
   constexpr int smem = Smem<HD>::kAlloc;
@@ -661,6 +662,13 @@ int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// Head_dim HD's call on the kernels of kernel_head_dim(HD): itself, or 224 on 256's
+// with tensor maps of p.hd columns.
+template <typename T, int HD>
+int launch(const Params& p, CUtensorMapDataType type, cudaStream_t st) {
+  return launch_hd<T, kernel_head_dim(HD)>(p, type, st);
+}
+
 }  // namespace
 
 int launch_sm90(const Params& p, int hd, int dtype, cudaStream_t st) {
@@ -670,6 +678,7 @@ int launch_sm90(const Params& p, int hd, int dtype, cudaStream_t st) {
     if (hd == 64) return launch<__nv_bfloat16, 64>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 80) return launch<__nv_bfloat16, 80>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 128) return launch<__nv_bfloat16, 128>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+    if (hd == 224) return launch<__nv_bfloat16, 224>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
     if (hd == 256) return launch<__nv_bfloat16, 256>(p, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   } else if (dtype == 2) {
     if (hd == 16) return launch<__half, 16>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
@@ -677,6 +686,7 @@ int launch_sm90(const Params& p, int hd, int dtype, cudaStream_t st) {
     if (hd == 64) return launch<__half, 64>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 80) return launch<__half, 80>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 128) return launch<__half, 128>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
+    if (hd == 224) return launch<__half, 224>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     if (hd == 256) return launch<__half, 256>(p, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
   }
   return -1;

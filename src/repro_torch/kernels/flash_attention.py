@@ -10,6 +10,12 @@ float32, ``csrc/flash_attention_fp32.cu``: dq with D, then dk/dv); on the CPU bo
 are the plain versions of ``ref``.  A call without gradients (serving) launches the
 forward kernel alone and writes no ``lse``.
 
+The softmax scale is ``scale``, 1/sqrt(head_dim) by default.  Head_dim 224
+(zamba2-7b's shared attention) runs on the head_dim-256 kernels with tensor maps
+of 224 columns: TMA fills the last 32 columns of every tile it loads with zeros,
+which add nothing to a product, and the kernels store only the first 224 columns;
+no padded copy is made.
+
 Which kernel a CUDA call launches is the library's own rule (``variant``,
 ``bwd_variant``): 16-bit inputs take the TMA + wgmma kernels (``sm90_wgmma``) at
 every compiled head_dim, forward and backward; float32, at every head_dim, the
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
@@ -31,8 +38,8 @@ from repro_torch.kernels.ref import (flash_attention_bwd_reference,
                                      flash_attention_lse_reference, mha_reference)
 
 #: head_dims compiled in (``kHeadDims`` / ``kBwdHeadDims`` of ``csrc/flash_attention.cuh``)
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 224, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 224, 256)
 #: the C interface's codes 0, 1, 2, forward and backward
 VARIANTS = ("tf32x3", "sm90_wgmma")
 #: the wgmma backward pads its per-row scratch to a multiple of this many query rows
@@ -41,6 +48,9 @@ BWD_SQ_PAD = 128
 #: the head_dim at which the wgmma backward computes dq in a pass of its own, with no
 #: float32 accumulator (``kDqPassHeadDim`` of ``csrc/flash_attention.cuh``)
 BWD_DQ_PASS_HEAD_DIM = 256
+#: head_dims that run on another head_dim's 16-bit kernels, with tensor maps of their
+#: own width (``kernel_head_dim`` of ``csrc/flash_attention.cuh``)
+KERNEL_HEAD_DIM = {224: 256}
 
 #: kernel launches in this process (CUDA tensors only): forward calls in all and by
 #: the kernel that ran, and backward calls likewise (one a call, whatever auxiliary
@@ -49,6 +59,9 @@ launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 bwd_launches = 0
 bwd_launches_by_variant = dict.fromkeys(VARIANTS, 0)
+#: the same calls by head_dim and variant: {(head_dim, variant): calls}
+launches_by_head_dim: dict[tuple[int, str], int] = {}
+bwd_launches_by_head_dim: dict[tuple[int, str], int] = {}
 
 _fwd = None        # the library's repro_flash_attention_fwd, bound at first use
 _stream = None     # device index -> raw handle of its current stream
@@ -87,6 +100,14 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> str:
     return _bwd_variant[key]
 
 
+def _scale(hd: int, scale: float | None) -> float:
+    """The softmax scale a kernel is given: ``scale``, or 1/sqrt(hd) worked in
+    float32 (a float32 square root and quotient, each correctly rounded)."""
+    if scale is None:
+        return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    return float(scale)
+
+
 def _check_layout(name: str, t: torch.Tensor) -> None:
     """Every kernel loads whole rows by 16-byte copies (TMA tiles, bulk copies): the
     head_dim stride must be 1 and each row start on a 16-byte boundary, in every
@@ -108,8 +129,9 @@ def _layout_ok(t: torch.Tensor) -> bool:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, scale: float | None = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd).  Returns (B, Sq, H, hd).
+    The scores are q.k times ``scale`` (1/sqrt(hd) when None).
 
     Queries are aligned to the end of the keys (query i sits at position
     ``i + Skv - Sq``).  With a causal mask or a window, ``Sq <= Skv`` is required
@@ -141,9 +163,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not (q.device == k.device == v.device):
             raise ValueError("flash_attention: q, k, v on different devices")
         if grad:
-            return FlashAttention.apply(q, k, v, causal, window, softcap)
+            return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
         return mha_reference(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
+                             softcap=softcap, scale=scale)
     dev = q.get_device()
     if not (k.is_cuda and v.is_cuda and k.get_device() == dev == v.get_device()):
         raise ValueError("flash_attention: q, k, v on different devices")
@@ -157,11 +179,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
     if grad:
-        return FlashAttention.apply(q, k, v, causal, window, softcap)
-    return launch_forward(q, k, v, causal, window, softcap, with_lse=False)[0]
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return launch_forward(q, k, v, causal, window, softcap, with_lse=False,
+                          scale=scale)[0]
 
 
-def launch_forward(q, k, v, causal, window, softcap, *, with_lse: bool):
+def _count(table: dict, hd: int, kind: str) -> None:
+    table[hd, kind] = table.get((hd, kind), 0) + 1
+
+
+def launch_forward(q, k, v, causal, window, softcap, *, with_lse: bool,
+                   scale: float | None = None):
     """Launch the forward kernel on checked CUDA tensors: (o, lse or None)."""
     global launches
     B, Sq, H, hd = q.shape
@@ -180,19 +208,20 @@ def launch_forward(q, k, v, causal, window, softcap, *, with_lse: bool):
                B, Sq, k.shape[1], H, k.shape[2], hd,
                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *o.stride()[:3],
-               int(bool(causal)), int(window), float(softcap), code, dev,
-               _stream(dev))
+               int(bool(causal)), int(window), float(softcap), _scale(hd, scale), code,
+               dev, _stream(dev))
     if err:
         _build.check(err, "flash_attention")
     launches += 1
     launches_by_variant[kind] += 1
+    _count(launches_by_head_dim, hd, kind)
     return o, lse
 
 
 def _bwd_scratch(kind: str, q: torch.Tensor):
     """The backward's float32 scratch for q (B, Sq, H, hd): (delta, dq_acc).  The
     wgmma kernel takes D and lse * log2(e), each (B, H, Sq padded to BWD_SQ_PAD), and
-    (but at head_dim 256, whose dq pass writes dq itself) a dq accumulator of as many
+    (but at head_dim 224 and 256, whose dq pass writes dq itself) a dq accumulator of as many
     floats as (B, H, padded Sq, hd), in the kernel's own block layout (its prep kernel
     writes them); the tf32x3 passes take D as (B, H, Sq) and no accumulator."""
     B, Sq, H, hd = q.shape
@@ -200,14 +229,16 @@ def _bwd_scratch(kind: str, q: torch.Tensor):
         return torch.empty((B, H, Sq), dtype=torch.float32, device=q.device), None
     sq_pad = -(-Sq // BWD_SQ_PAD) * BWD_SQ_PAD
     delta = torch.empty((2, B, H, sq_pad), dtype=torch.float32, device=q.device)
-    if hd == BWD_DQ_PASS_HEAD_DIM:
+    if KERNEL_HEAD_DIM.get(hd, hd) == BWD_DQ_PASS_HEAD_DIM:
         return delta, None
     return delta, torch.empty((B, H, sq_pad, hd), dtype=torch.float32, device=q.device)
 
 
-def launch_backward(q, k, v, o, lse, do, causal, window, softcap):
+def launch_backward(q, k, v, o, lse, do, causal, window, softcap,
+                    scale: float | None = None):
     """Launch the backward kernels on CUDA tensors: (dq, dk, dv).  q, k, v and o
-    as the forward took and gave them, lse its (B, H, Sq) float32 output."""
+    as the forward took and gave them, lse its (B, H, Sq) float32 output, and
+    the forward's ``scale``."""
     global bwd_launches
     B, Sq, H, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
@@ -236,7 +267,8 @@ def launch_backward(q, k, v, o, lse, do, causal, window, softcap):
         dq_acc=dq_acc.data_ptr() if dq_acc is not None else None, dq=dq.data_ptr(), dk=dk.data_ptr(), dv=dv.data_ptr(), stream=_stream(dev),
         B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1], H=q.shape[2], KV=k.shape[2],
         hd=q.shape[3], causal=int(bool(causal)), window=int(window),
-        softcap=float(softcap), dtype=_build.DTYPE_CODES[q.dtype], device=dev)
+        softcap=float(softcap), scale=_scale(q.shape[3], scale),
+        dtype=_build.DTYPE_CODES[q.dtype], device=dev)
     for name, t in zip(_build.FLASH_BWD_TENSORS, (q, k, v, o, do, dq, dk, dv)):
         setattr(call, f"{name}_sb", t.stride(0))
         setattr(call, f"{name}_ss", t.stride(1))
@@ -246,6 +278,7 @@ def launch_backward(q, k, v, o, lse, do, causal, window, softcap):
         _build.check(err, "flash_attention backward")
     bwd_launches += 1
     bwd_launches_by_variant[kind] += 1
+    _count(bwd_launches_by_head_dim, q.shape[3], kind)
     return dq, dk, dv
 
 
@@ -256,24 +289,28 @@ class FlashAttention(torch.autograd.Function):
     them (kernels on the card, ``ref`` on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
         if q.is_cuda:
-            o, lse = launch_forward(q, k, v, causal, window, softcap, with_lse=True)
+            o, lse = launch_forward(q, k, v, causal, window, softcap, with_lse=True,
+                                    scale=scale)
         else:
-            o = mha_reference(q, k, v, causal=causal, window=window, softcap=softcap)
+            o = mha_reference(q, k, v, causal=causal, window=window, softcap=softcap,
+                              scale=scale)
             lse = flash_attention_lse_reference(q, k, causal=causal, window=window,
-                                                softcap=softcap)
+                                                softcap=softcap, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = (causal, window, softcap)
+        ctx.mask = (causal, window, softcap, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, softcap = ctx.mask
+        causal, window, softcap, scale = ctx.mask
         if q.is_cuda:
-            dq, dk, dv = launch_backward(q, k, v, o, lse, do, causal, window, softcap)
+            dq, dk, dv = launch_backward(q, k, v, o, lse, do, causal, window, softcap,
+                                         scale)
         else:
             dq, dk, dv = flash_attention_bwd_reference(
-                q, k, v, o, lse, do, causal=causal, window=window, softcap=softcap)
-        return dq, dk, dv, None, None, None
+                q, k, v, o, lse, do, causal=causal, window=window, softcap=softcap,
+                scale=scale)
+        return dq, dk, dv, None, None, None, None

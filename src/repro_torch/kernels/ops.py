@@ -49,9 +49,20 @@ def flash_bwd_launches_by_variant() -> dict[str, int]:
     return dict(_flash_mod.bwd_launches_by_variant)
 
 
+def flash_launches_by_head_dim() -> dict[str, dict[str, int]]:
+    """Flash-attention launches since the last :func:`reset_launch_counts` by
+    direction, head_dim and variant: ``{"forward": {"224/sm90_wgmma": n, ...},
+    "backward": {...}}``."""
+    return {way: {f"{hd}/{kind}": n for (hd, kind), n in sorted(table.items())}
+            for way, table in (("forward", _flash_mod.launches_by_head_dim),
+                               ("backward", _flash_mod.bwd_launches_by_head_dim))}
+
+
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTED.values():
         setattr(mod, attr, 0)
     for counts in (_flash_mod.launches_by_variant, _flash_mod.bwd_launches_by_variant):
         for key in counts:
             counts[key] = 0
+    _flash_mod.launches_by_head_dim.clear()
+    _flash_mod.bwd_launches_by_head_dim.clear()

@@ -13,13 +13,15 @@ import torch
 
 
 def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
-                   softcap: float):
+                   softcap: float, scale: float | None = None):
     """Scaled (and capped) fp32 scores (B, KV, G, Sq, Skv), their visibility mask
-    (Sq, Skv), and tanh of the capped scores (None without softcap)."""
+    (Sq, Skv), and tanh of the capped scores (None without softcap).  The scale is
+    1/sqrt(hd) unless ``scale`` is given."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
-    s = torch.einsum("bqhgk,bshk->bhgqs", qg, k).float() / math.sqrt(hd)
+    s = torch.einsum("bqhgk,bshk->bhgqs", qg, k).float()
+    s = s / math.sqrt(hd) if scale is None else s * scale
     th = None
     if softcap:
         th = torch.tanh(s / softcap)
@@ -36,14 +38,14 @@ def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int,
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  softcap: float = 0.0) -> torch.Tensor:
+                  softcap: float = 0.0, scale: float | None = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0 (GQA).
 
-    Returns (B, Sq, H, hd).  Scores in fp32, softcap before the mask, queries
-    offset by ``Skv - Sq``, mask fill -1e30.
+    Returns (B, Sq, H, hd).  Scores in fp32 at ``scale`` (1/sqrt(hd) by default),
+    softcap before the mask, queries offset by ``Skv - Sq``, mask fill -1e30.
     """
     B, Sq, H, hd = q.shape
-    s, mask, _ = _masked_scores(q, k, causal, window, softcap)
+    s, mask, _ = _masked_scores(q, k, causal, window, softcap, scale)
     s = torch.where(mask, s, torch.full((), -1e30, dtype=s.dtype,
                                         device=s.device))
     p = torch.softmax(s, dim=-1)
@@ -53,18 +55,20 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor, *,
                                   causal: bool = True, window: int = 0,
-                                  softcap: float = 0.0) -> torch.Tensor:
+                                  softcap: float = 0.0,
+                                  scale: float | None = None) -> torch.Tensor:
     """Per query row, the log-sum-exp (natural log) of the masked, scaled (and
     capped) scores: (B, H, Sq) fp32, head ``h`` reading KV head ``h // G``."""
     B, Sq, H, _ = q.shape
-    s, mask, _ = _masked_scores(q, k, causal, window, softcap)
+    s, mask, _ = _masked_scores(q, k, causal, window, softcap, scale)
     s = torch.where(mask, s, torch.full((), -1e30, dtype=s.dtype,
                                         device=s.device))
     return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
-                                  window: int = 0, softcap: float = 0.0):
+                                  window: int = 0, softcap: float = 0.0,
+                                  scale: float | None = None):
     """Gradients (dq, dk, dv) of attention from its inputs, output ``o``, per-row
     ``lse`` (B, H, Sq) and output gradient ``do``, in fp32, each returned in its
     input's dtype.  ``D = rowsum(do * o)``, ``p = exp(s - lse)`` where visible,
@@ -73,11 +77,11 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
-    scale = 1.0 / math.sqrt(hd)
     qf, kf, vf = q.float(), k.float(), v.float()
     qg = qf.reshape(B, Sq, KV, G, hd)
     dog = do.float().reshape(B, Sq, KV, G, hd)
-    s, mask, th = _masked_scores(qf, kf, causal, window, softcap)
+    s, mask, th = _masked_scores(qf, kf, causal, window, softcap, scale)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     p = torch.where(mask, torch.exp(s - lse.float().reshape(B, KV, G, Sq, 1)),
                     torch.zeros((), device=q.device))
     delta = (dog * o.float().reshape(B, Sq, KV, G, hd)).sum(-1)   # (B, Sq, KV, G)

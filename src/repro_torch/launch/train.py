@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS, EXTRA_ARCH_IDS, get_config
 from repro_torch.core import hetero_cluster, plan_hybrid
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -36,7 +36,7 @@ from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
 def main(argv: list[str] | None = None) -> Trainer:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="xlstm_125m", choices=list(ARCH_IDS))
+    ap.add_argument("--arch", default="xlstm_125m", choices=list(ARCH_IDS + EXTRA_ARCH_IDS))
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)

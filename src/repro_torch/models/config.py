@@ -10,6 +10,7 @@ instantiate (repro_torch/configs/<id>.py).  It drives
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Literal
 
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.core.opgraph import ModelDesc
 
-BlockKind = Literal["attn", "mamba", "mlstm", "slstm", "shared_attn"]
+BlockKind = Literal["attn", "mamba", "mlstm", "slstm", "shared_attn", "hybrid"]
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16, "float64": torch.float64}
@@ -41,6 +42,33 @@ LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
 ALL_SHAPES: tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
                                      LONG_500K)
 SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+@dataclass(frozen=True)
+class HybridDesc(ModelDesc):
+    """A :class:`ModelDesc` of a model whose shared blocks run at several layers: the
+    planner sees each use as an ``"attn"`` layer of ``attn_in``-wide queries, keys
+    and values (the block's concatenated input) plus the use's own ``use_params``
+    (adapter and linear), and each ``"mamba"`` layer as ``mamba_params``.  Each use
+    holds its block's weights as if they were its own: the planner has no shared
+    weights.  The attention's products are priced at ``d_model`` wide
+    (``opgraph._attn_flops``)."""
+
+    attn_in: int = 0
+    use_params: int = 0
+    mamba_params: int = 0
+
+    def attn_params(self) -> int:
+        w, q, kv = self.attn_in, self.q_dim, self.kv_dim
+        return w * q + 2 * w * kv + q * self.d_model
+
+    def ssm_params(self) -> int:
+        return self.mamba_params
+
+    def layer_params(self, i: int) -> int:
+        if self.layer_kind(i) == "attn":
+            return self.attn_params() + self.ffn_params() + self.use_params
+        return super().layer_params(i)
 
 
 @dataclass(frozen=True)
@@ -100,6 +128,19 @@ class ArchConfig:
     # attention window for hybrid long-context shared attention (0 = full)
     attn_window: int = 0
 
+
+    # What only the port's further architectures set (:class:`PortArchConfig`):
+    # class attributes here, fields there, so that the ten configurations keep the
+    # JAX package's fields one for one.
+    ssm_groups = 1
+    ssm_conv_xbc = False
+    ssm_conv_bias = False
+    layer_kinds = ()
+    n_shared_blocks = 0
+    adapter_rank = 0
+    attn_scale_div = 1.0
+    gelu_approximate = "tanh"
+
     # ------------------------------------------------------------------
 
     @property
@@ -107,8 +148,20 @@ class ArchConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     @property
+    def softmax_scale(self) -> float:
+        return (self.hd / self.attn_scale_div) ** -0.5
+
+    @property
     def pattern(self) -> tuple[BlockKind, ...]:
+        if self.layer_kinds:
+            return self.layer_kinds[:self.n_layers]
         return self.block_pattern or ("attn",)
+
+    def shared_uses(self) -> dict[int, tuple[int, int]]:
+        """Layer index -> (use, shared block) of every ``"hybrid"`` layer: the
+        uses counted from 0 in layer order, the blocks taken in turn."""
+        hybrid = [i for i, k in enumerate(self.pattern) if k == "hybrid"]
+        return {i: (u, u % max(self.n_shared_blocks, 1)) for u, i in enumerate(hybrid)}
 
     @property
     def cycle_len(self) -> int:
@@ -130,6 +183,8 @@ class ArchConfig:
     # -- planner bridge -------------------------------------------------------
 
     def to_model_desc(self) -> ModelDesc:
+        if "hybrid" in self.pattern:
+            return self._hybrid_desc()
         pattern = tuple("mamba" if b == "mamba" else
                         ("mlstm" if b in ("mlstm", "slstm") else "attn")
                         for b in self.pattern) if self.block_pattern else ()
@@ -142,6 +197,24 @@ class ArchConfig:
             ffn_kind=self.ffn_kind, cross_attn_every=self.cross_attn_every,
             encoder_layers=self.encoder_layers,
             dtype_bytes=self.torch_dtype.itemsize)
+
+    def _hybrid_desc(self) -> "HybridDesc":
+        """The planner's view of a model with shared blocks: each use of a shared
+        block an ``"attn"`` layer ahead of its Mamba2 layer, with the block's
+        2 * d_model input width, the use's adapter and linear, and each Mamba2
+        layer's exact parameters (:class:`HybridDesc`)."""
+        from repro_torch.models import layers as L
+        kinds = []
+        for k in self.pattern:
+            kinds += ["attn", "mamba"] if k == "hybrid" else [k]
+        d, f, r = self.d_model, self.d_ff, self.adapter_rank
+        mamba = sum(math.prod(p.shape) for _, p in L.flatten_defs(L.mamba_defs(self)))
+        return HybridDesc(
+            name=self.name, n_layers=len(kinds), d_model=d, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, d_ff=f, vocab=self.vocab, head_dim=self.hd,
+            ssm_state=self.ssm_state, block_pattern=tuple(kinds), ffn_kind="geglu",
+            dtype_bytes=self.torch_dtype.itemsize, attn_in=2 * d,
+            use_params=d * r + 2 * r * f + d * d, mamba_params=mamba)
 
     # -- reduced config for CPU tests ------------------------------------
 
@@ -168,6 +241,12 @@ class ArchConfig:
             attn_window=16 if self.attn_window else 0,
             dtype="float32",
         )
+        if self.layer_kinds:
+            # the published kinds of the first 18 layers (both shared blocks, the
+            # first used twice) at narrow widths: blocks 2 x 128 wide, 8 heads of 32
+            base.update(n_layers=min(self.n_layers, 18), d_model=128, n_heads=8,
+                        n_kv_heads=8, head_dim=32, d_ff=256, ssm_state=16,
+                        ssm_head_dim=16, adapter_rank=8)
         base.update(overrides)
         # keep heads consistent with d_model when head_dim not pinned
         if base.get("head_dim") is None and not self.head_dim:
@@ -215,3 +294,31 @@ class ArchConfig:
         if self.cross_attn_every:
             specs["vision_embed"] = ((B, self.vision_seq, self.d_model), dt)
         return specs
+
+
+@dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An architecture the port runs beyond the ten the JAX package mirrors: the
+    fields below, at their defaults, compute as :class:`ArchConfig` does."""
+
+    # Mamba2 as published (zamba2-7b): B and C in ``ssm_groups`` groups (head h reads
+    # group h // (heads / groups)) with the gated RMSNorm taken per group; the
+    # convolution over x, B and C together (``ssm_conv_xbc``), with a bias
+    # (``ssm_conv_bias``).  At the defaults: one group, x alone, no bias.
+    ssm_groups: int = 1
+    ssm_conv_xbc: bool = False
+    ssm_conv_bias: bool = False
+
+    # explicit per-layer kinds of the whole model, cut to ``n_layers`` (a layer
+    # pattern that is no cycle); overrides ``block_pattern``.  A ``"hybrid"`` layer is
+    # one of ``n_shared_blocks`` shared attention + MLP blocks (by use, in turn) on
+    # concat(h, embedding), 2 * d_model wide, then a Mamba2 layer whose input alone
+    # takes the block's output through the use's own d x d linear
+    layer_kinds: tuple[BlockKind, ...] = ()
+    n_shared_blocks: int = 0
+    # rank of each use's adapter on the shared MLP's gate/up product (0: none)
+    adapter_rank: int = 0
+    # the softmax scale is (head_dim / attn_scale_div) ** -0.5
+    attn_scale_div: float = 1.0
+    # "tanh" or "none" (exact erf), as ``F.gelu``'s ``approximate``
+    gelu_approximate: str = "tanh"

@@ -29,6 +29,7 @@ time): none of it is a Pallas kernel in the reference either.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from dataclasses import dataclass
@@ -43,6 +44,7 @@ from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.obs import NULL_HANDLE
 from repro_torch.parallel.axes import AxisRules, active_rules, shard
 
 NEG_INF = -1e30
@@ -176,10 +178,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return _rotate(x, *rope_tables(positions, x.shape[-1], theta))
 
 
-def _act(kind: str, x: torch.Tensor) -> torch.Tensor:
+def _act(kind: str, x: torch.Tensor, approximate: str = "tanh") -> torch.Tensor:
     if kind == "swiglu":
         return F.silu(x)
-    return F.gelu(x, approximate="tanh")     # geglu and gelu
+    return F.gelu(x, approximate=approximate)     # geglu and gelu
 
 
 # ---------------------------------------------------------------------------
@@ -673,18 +675,27 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def conv_channels(cfg) -> int:
+    """The Mamba2 convolution's channels: x alone, or x, B and C of every group."""
+    e = cfg.ssm_expand * cfg.d_model
+    return e + 2 * cfg.ssm_groups * cfg.ssm_state if cfg.ssm_conv_xbc else e
+
+
 def mamba_defs(cfg) -> dict:
     d = cfg.d_model
     e = cfg.ssm_expand * d
     nh = e // cfg.ssm_head_dim
-    N, W = cfg.ssm_state, cfg.ssm_conv_width
-    return {"ln": ParamDef((d,), ("embed",), init="ones"),
+    N, W, G = cfg.ssm_state, cfg.ssm_conv_width, cfg.ssm_groups
+    defs = {"ln": ParamDef((d,), ("embed",), init="ones"),
             "w_z": ParamDef((d, e), ("fsdp", "mlp")),
             "w_x": ParamDef((d, e), ("fsdp", "mlp")),
-            "w_B": ParamDef((d, N), ("fsdp", "state")),
-            "w_C": ParamDef((d, N), ("fsdp", "state")),
+            "w_B": ParamDef((d, G * N), ("fsdp", "state")),
+            "w_C": ParamDef((d, G * N), ("fsdp", "state")),
             "w_dt": ParamDef((d, nh), ("fsdp", "heads")),
-            "conv_w": ParamDef((W, e), ("conv", "mlp"), scale=0.5),
+            "conv_w": ParamDef((W, conv_channels(cfg)), ("conv", "mlp"), scale=0.5)}
+    if cfg.ssm_conv_bias:
+        defs["conv_b"] = ParamDef((conv_channels(cfg),), ("mlp",), init="zeros")
+    return {**defs,
             "A_log": ParamDef((nh,), ("heads",), init="zeros"),
             "D": ParamDef((nh,), ("heads",), init="ones"),
             "dt_bias": ParamDef((nh,), ("heads",), init="zeros"),
@@ -753,6 +764,36 @@ def _local_rows_and_heads(fn, tensors, dims, out_dims):
 
 MAMBA_CHUNK = 128
 
+#: Where the model's own spans (``model.ssd``, ``model.shared_block``) and counters
+#: (``model.ssd.<form>``) go: ``(span, inc)`` as a caller installs them for a block
+#: with :func:`recording` (the train step: its ``Obs`` through ``runtime.spans``).
+#: Outside such a block nothing is recorded.
+_recorder: tuple | None = None
+
+
+@contextlib.contextmanager
+def recording(span, inc):
+    """Send the model's spans to ``span(name, **attrs)`` (a context manager) and its
+    counters to ``inc(name)`` for the block."""
+    global _recorder
+    saved, _recorder = _recorder, (span, inc)
+    try:
+        yield
+    finally:
+        _recorder = saved
+
+
+def model_span(name: str, **attrs):
+    """A span of the model's own code: ``NULL_HANDLE`` outside :func:`recording`."""
+    return NULL_HANDLE if _recorder is None else _recorder[0](name, **attrs)
+
+
+def _count_ssd(form: str) -> None:
+    """One SSD call (``mamba_block``'s prefill and decode alike): the chunkwise form
+    once a layer, the sequential form once a group of B and C."""
+    if _recorder is not None:
+        _recorder[1](f"model.ssd.{form}")
+
 
 def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
                 chunk: int = MAMBA_CHUNK):
@@ -765,7 +806,16 @@ def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
 
     Every decay ratio is the exp of a non-positive number.  Only the chunk
     boundary states run in order (one small update a chunk); the products of
-    all chunks with their incoming states are then taken at once.
+    all chunks with their incoming states are then taken at once.  With
+    gradients on, the chunkwise form keeps only its inputs for the backward and
+    recomputes the rest there (non-reentrant ``torch.utils.checkpoint``): its
+    (B, n, c, c, heads) float32 decay ratios would otherwise stay alive, several
+    of them, for every layer.
+
+    B_in and C_in are (B,S,N), or (B,S,G,N) for G groups: head h reads group
+    ``h // (nh / G)``.  Grouped, the chunkwise form is :func:`_ssd_chunked_groups`
+    (all groups at once, the chunk states passed by one product); the sequential
+    form runs each group's heads as a scan of their own.
     """
     if isinstance(x, DTensor):
         args = (x, B_in, C_in, dt, A_log, D) + ((h0,) if h0 is not None else ())
@@ -774,9 +824,35 @@ def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
                                    chunk=chunk),
             args, ((0, 2), (0, None), (0, None), (0, 2), (None, 0), (None, 0), (0, 1)),
             ((0, 2), (0, 1)))
-    Bb, S, nh, _ = x.shape
+    S = x.shape[1]
+    if B_in.ndim == 4 and not (S % chunk or S <= chunk):
+        _count_ssd("chunked")
+        if torch.is_grad_enabled():
+            return checkpoint(_ssd_chunked_groups, x, B_in, C_in, dt, A_log, D, hd, h0,
+                              chunk, use_reentrant=False)
+        return _ssd_chunked_groups(x, B_in, C_in, dt, A_log, D, hd, h0, chunk)
+    if B_in.ndim == 4:
+        G = B_in.shape[2]
+        per = x.shape[2] // G
+        parts = [_mamba_scan(x[:, :, h], B_in[:, :, g], C_in[:, :, g], dt[:, :, h],
+                             A_log[h], D[h], hd, h0=None if h0 is None else h0[:, h],
+                             chunk=chunk)
+                 for g, h in ((g, slice(g * per, (g + 1) * per)) for g in range(G))]
+        return (torch.cat([y for y, _ in parts], dim=2),
+                torch.cat([hf for _, hf in parts], dim=1))
     if S % chunk or S <= chunk:
+        _count_ssd("sequential")
         return _mamba_scan_seq(x, B_in, C_in, dt, A_log, D, hd, h0=h0)
+    _count_ssd("chunked")
+    if torch.is_grad_enabled():
+        return checkpoint(_ssd_chunked, x, B_in, C_in, dt, A_log, D, hd, h0, chunk,
+                          use_reentrant=False)
+    return _ssd_chunked(x, B_in, C_in, dt, A_log, D, hd, h0, chunk)
+
+
+def _ssd_chunked(x, B_in, C_in, dt, A_log, D, hd, h0, chunk):
+    """:func:`_mamba_scan`'s chunkwise form, S a multiple of ``chunk``."""
+    Bb, S, nh, _ = x.shape
     N = B_in.shape[-1]
     A = -torch.exp(A_log.float())                          # (nh,)
     n = S // chunk
@@ -817,36 +893,164 @@ def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
     return y + D[None, None, :, None] * x, h
 
 
-def mamba_block(p, cfg, x: torch.Tensor, *, state=None, conv_state=None):
+def _ssd_chunked_groups(x, B_in, C_in, dt, A_log, D, hd, h0, chunk):
+    """:func:`_ssd_chunked` for B and C in G groups (B_in, C_in (B,S,G,N); head h
+    reads group h // (nh / G)), every group in one pass, S a multiple of ``chunk``.
+    The chunk-boundary states are passed by one product instead of a loop over the
+    chunks: with L_i the running sum of the chunks' total log decays (float64, so
+    that near chunks keep their digits), the state leaving chunk i is
+    ``sum_{j<=i} exp(L_i - L_j) contrib_j + exp(L_i) h0``."""
+    Bb, S, nh, _ = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    per, n = nh // G, S // chunk
+    A = -torch.exp(A_log.float()).reshape(G, per)
+
+    def reshape_c(t, *tail):
+        return t.reshape(Bb, n, chunk, *tail)
+
+    u = reshape_c(dt, G, per).float()[..., None] * reshape_c(x, G, per, hd).float()
+    Bc = reshape_c(B_in, G, N).float()
+    Cc = reshape_c(C_in, G, N).float()
+    logP = torch.cumsum(A * reshape_c(dt, G, per).float(), dim=2)   # (B,n,c,G,per)
+    logPc = logP[:, :, -1]                                           # (B,n,G,per)
+
+    # intra-chunk: (C_t.B_s) * exp(logP_t - logP_s), masked s <= t
+    cb = torch.einsum("btgk,bsgk->btsg", Cc.flatten(0, 1), Bc.flatten(0, 1))
+    ratio = logP[:, :, :, None] - logP[:, :, None]                   # (B,n,t,s,G,per)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    ratio = torch.where(mask[None, None, :, :, None, None], ratio,
+                        torch.full((), NEG_INF, dtype=ratio.dtype, device=x.device))
+    weights = cb.reshape(Bb, n, chunk, chunk, G)[..., None] * torch.exp(ratio)
+    y_intra = torch.einsum("bntsgh,bnsghp->bntghp", weights, u)
+    del ratio, weights
+
+    # each chunk's own contribution to the state, then the states passed on
+    contrib = torch.einsum("bntghp,bntgk->bnghpk",
+                           torch.exp(logPc[:, :, None] - logP)[..., None] * u, Bc)
+    Lc = torch.cumsum(logPc.double(), dim=1)                         # (B,n,G,per)
+    seg = Lc[:, :, None] - Lc[:, None]                               # (B,i,j,G,per)
+    after = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()[None, :, :, None, None]
+    carry = torch.where(after, torch.exp(torch.where(after, seg, 0.0)), 0.0).float()
+    h_out = torch.einsum("bijgh,bjghpk->bighpk", carry, contrib)     # leaving chunk i
+    if h0 is not None:
+        h_out = h_out + torch.exp(Lc).float()[..., None, None] * h0.reshape(Bb, 1, G, per, hd, N)
+        first = h0.reshape(Bb, 1, G, per, hd, N)
+    else:
+        first = torch.zeros_like(h_out[:, :1])
+    h_in = torch.cat([first, h_out[:, :-1]], dim=1)
+    y_cross = torch.einsum("bntgk,bnghpk->bntghp", Cc, h_in) * torch.exp(logP)[..., None]
+    y = (y_intra + y_cross).reshape(Bb, S, nh, hd).to(x.dtype)
+    return y + D[None, None, :, None] * x, h_out[:, -1].reshape(Bb, nh, hd, N)
+
+
+def _group_rms_norm(y: torch.Tensor, w: torch.Tensor, groups: int,
+                    eps: float) -> torch.Tensor:
+    """RMSNorm over each of ``groups`` equal slices of the last dim, each with its
+    own slice of the gains ``w`` (the published Mamba2's gated norm); one group is
+    :func:`rms_norm`."""
+    if groups == 1:
+        return rms_norm(y, w, eps)
+    return torch.cat([rms_norm(part.contiguous(), wg, eps) for part, wg in
+                      zip(y.chunk(groups, dim=-1), w.chunk(groups))], dim=-1)
+
+
+def mamba_block(p, cfg, x: torch.Tensor, *, state=None, conv_state=None,
+                add: torch.Tensor | None = None):
     """Mamba2 residual block: prefill over the whole sequence (chunkwise SSD),
-    or, with ``state`` (B,nh,hd,N) fp32 and ``conv_state`` (B,W-1,e), one decode
-    step.  Returns (out, final SSM state, the last W-1 conv inputs)."""
+    or, with ``state`` (B,nh,hd,N) fp32 and ``conv_state`` (B,W-1,channels), one
+    decode step.  Returns (out, final SSM state, the last W-1 conv inputs).
+
+    ``add`` (a shared block's output, zamba2-7b) joins the block's input only:
+    ``x + mamba(norm(x + add))``.  With ``cfg.ssm_conv_xbc`` the convolution runs
+    over x, B and C together (with ``conv_b`` when ``cfg.ssm_conv_bias``), and B and
+    C come in ``cfg.ssm_groups`` groups, the gated norm taken per group."""
     Bb, S, d = x.shape
     e = cfg.ssm_expand * d
     hd = cfg.ssm_head_dim
     nh = e // hd
     W = cfg.ssm_conv_width
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    h = rms_norm(x if add is None else x + add, p["ln"], cfg.norm_eps)
     z = h @ p["w_z"]
     xin = shard(h @ p["w_x"], "batch", "seq", "mlp")
+    if cfg.ssm_conv_xbc:
+        xin = torch.cat([xin, h @ p["w_B"], h @ p["w_C"]], dim=-1)
+    ch = xin.shape[-1]
     # causal depthwise conv
-    if conv_state is not None:                             # decode: (B, W-1, e)
-        window = torch.cat([conv_state, xin], dim=1)       # (B, W, e)
+    if conv_state is not None:                             # decode: (B, W-1, ch)
+        window = torch.cat([conv_state, xin], dim=1)       # (B, W, ch)
         new_conv = window[:, 1:]
         xc = torch.einsum("bwe,we->be", window, p["conv_w"])[:, None]
     else:
-        win = torch.cat([xin.new_zeros((Bb, W - 1, e)), xin], dim=1)
+        win = torch.cat([xin.new_zeros((Bb, W - 1, ch)), xin], dim=1)
         xc = sum(win[:, i:i + S] * p["conv_w"][i] for i in range(W))
         new_conv = win[:, S:]                              # the last W-1 inputs
+    if "conv_b" in p:
+        xc = xc + p["conv_b"]
     xc = F.silu(xc)
-    B_in = h @ p["w_B"]
-    C_in = h @ p["w_C"]
+    if cfg.ssm_conv_xbc:
+        xc, B_in, C_in = xc.split([e, G * N, G * N], dim=-1)
+    else:
+        B_in = h @ p["w_B"]
+        C_in = h @ p["w_C"]
+    if G > 1:
+        B_in = B_in.reshape(*B_in.shape[:2], G, N)
+        C_in = C_in.reshape(*C_in.shape[:2], G, N)
     dt = _softplus(h @ p["w_dt"] + p["dt_bias"])
-    y, h_fin = _mamba_scan(_split_last(xc, nh, hd), B_in, C_in, dt,
-                           p["A_log"], p["D"], hd, h0=state)
+    with model_span("model.ssd", S=xc.shape[1]):
+        y, h_fin = _mamba_scan(_split_last(xc, nh, hd), B_in, C_in, dt,
+                               p["A_log"], p["D"], hd, h0=state)
     y = _merge_last(y) * F.silu(z)
-    y = rms_norm(y, p["gn"], cfg.norm_eps)
+    y = _group_rms_norm(y, p["gn"], G, cfg.norm_eps)
     return x + shard(y @ p["w_out"], "batch", "seq", "embed"), h_fin, new_conv
+
+
+# ---------------------------------------------------------------------------
+# Shared attention + MLP block (zamba2-7b), used at several layers
+# ---------------------------------------------------------------------------
+
+
+def shared_block_defs(cfg) -> dict:
+    """One shared block: attention over concat(h, embedding) (2 * d_model wide,
+    no biases) into d_model, and a GeGLU MLP on d_model."""
+    H, KV, hd, d, w = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model, 2 * cfg.d_model
+    return {"attn": {"ln": ParamDef((w,), ("mlp",), init="ones"),
+                     "wq": ParamDef((w, H, hd), ("fsdp", "heads", "head_dim")),
+                     "wk": ParamDef((w, KV, hd), ("fsdp", "kv_heads", "head_dim")),
+                     "wv": ParamDef((w, KV, hd), ("fsdp", "kv_heads", "head_dim")),
+                     "wo": ParamDef((H, hd, d), ("heads", "head_dim", "fsdp"))},
+            "ffn": ffn_defs(cfg)}
+
+
+def shared_use_defs(cfg) -> dict:
+    """What each use of a shared block holds of its own: the rank-r adapter on the
+    MLP's gate and up products (``a_in`` d x r, then ``a_gate`` and ``a_up`` r x
+    d_ff) and the d x d ``linear`` that maps the block's output."""
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.adapter_rank
+    return {"a_in": ParamDef((d, r), ("fsdp", None)),
+            "a_gate": ParamDef((r, f), (None, "mlp")),
+            "a_up": ParamDef((r, f), (None, "mlp")),
+            "linear": ParamDef((d, d), ("fsdp", "embed"))}
+
+
+def shared_block(a, f, use, cfg, x: torch.Tensor, e0: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """A shared block's output at one use, before the layer's Mamba2 (no residual
+    inside it): h = norm(concat(x, e0)); attention (rope, causal, the softmax
+    scale ``cfg.softmax_scale``) into d_model; norm; the GeGLU MLP with the
+    use's adapter added to its gate and up products; the use's linear.  ``a`` and
+    ``f`` are the block's attention and MLP parameters, ``use`` the use's own."""
+    h = rms_norm(torch.cat([x, e0], dim=-1), a["ln"], cfg.norm_eps)
+    q, k, v = _proj_in(h, a["wq"]), _proj_in(h, a["wk"]), _proj_in(h, a["wv"])
+    cos, sin = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    q, k = _rotate(q, cos, sin), _rotate(k, cos, sin)
+    o = ops.flash_attention(q, k, v, causal=True, scale=cfg.softmax_scale)
+    h = rms_norm(_proj_out(o, a["wo"]), f["ln"], cfg.norm_eps)
+    lo = h @ use["a_in"]
+    gate = h @ f["w_gate"] + lo @ use["a_gate"]
+    up = h @ f["w_up"] + lo @ use["a_up"]
+    y = (_act("geglu", gate, cfg.gelu_approximate) * up) @ f["w_down"]
+    return y @ use["linear"]
 
 
 # ---------------------------------------------------------------------------

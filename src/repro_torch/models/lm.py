@@ -13,7 +13,11 @@ to a memory + FFN: llama-3.2-vision's image layers, whisper's decoder), with
 whisper's encoder; ``"mamba"`` (Mamba2); ``"mlstm"`` / ``"slstm"`` (xLSTM);
 ``"shared_attn"`` (zamba2: one attention + FFN weight set, ``LM.shared``, reused
 at every occurrence behind a per-occurrence ``in_proj``, causal over a sliding
-window whose decode cache is a ring buffer).  The memory is the encoded
+window whose decode cache is a ring buffer); ``"hybrid"`` (zamba2-7b, a
+``PortArchConfig`` with explicit ``layer_kinds``: one of the shared blocks
+``LM.mem``, in turn by use, on concat(h, embedding), its output through the
+use's adapter and linear added to the input of the layer's Mamba2 only; training
+and prefill, no decode).  The memory is the encoded
 ``audio_embed`` (whisper) or the ``vision_embed`` as given (llama-vision); a
 model without cross-attention ignores both.
 
@@ -87,6 +91,10 @@ class LM(nn.Module):
             for i in range(cfg.n_layers))
         if "shared_attn" in cfg.pattern:
             self.shared = Block(self.attn_ffn_defs(), dtype, device)
+        if "hybrid" in cfg.pattern:
+            self.mem = nn.ModuleList(Block(L.shared_block_defs(cfg), dtype, device)
+                                     for _ in range(cfg.n_shared_blocks))
+            self._uses = cfg.shared_uses()
         if cfg.encoder_layers:
             self.encoder = nn.ModuleList(
                 Block(self.attn_ffn_defs(), dtype, device)
@@ -116,6 +124,8 @@ class LM(nn.Module):
         if kind == "shared_attn":
             return {"in_proj": L.ParamDef((cfg.d_model, cfg.d_model),
                                           ("fsdp", "embed"), scale=0.02)}
+        if kind == "hybrid":
+            return {"mamba": L.mamba_defs(cfg), "use": L.shared_use_defs(cfg)}
         raise ValueError(f"unknown block kind {kind!r}")
 
     def attn_ffn_defs(self) -> dict:
@@ -136,6 +146,8 @@ class LM(nn.Module):
                                            cfg.n_cycles)
         if "shared_attn" in cfg.pattern:
             defs["shared"] = self.attn_ffn_defs()
+        if "hybrid" in cfg.pattern:
+            defs["mem"] = L.stack_defs(L.shared_block_defs(cfg), cfg.n_shared_blocks)
         if cfg.encoder_layers:
             defs["encoder"] = L.stack_defs(self.attn_ffn_defs(),
                                            cfg.encoder_layers)
@@ -152,6 +164,8 @@ class LM(nn.Module):
                   for i, blk in enumerate(self.blocks)]
         if "shared_attn" in cfg.pattern:
             layers.append((self.shared, self.attn_ffn_defs()))
+        if "hybrid" in cfg.pattern:
+            layers += [(blk, L.shared_block_defs(cfg)) for blk in self.mem]
         if cfg.encoder_layers:
             layers += [(lyr, self.attn_ffn_defs()) for lyr in self.encoder]
         with torch.no_grad():
@@ -219,12 +233,20 @@ class LM(nn.Module):
     # ------------------------------------------------------------------
 
     def _block(self, kind: str, blk: Block, x: torch.Tensor,
-               positions: torch.Tensor, memory: torch.Tensor | None):
-        """One layer over the whole sequence: (new x, its cache entry).  The
+               positions: torch.Tensor, memory: torch.Tensor | None,
+               e0: torch.Tensor | None = None, i: int = -1):
+        """Layer ``i`` over the whole sequence: (new x, its cache entry).  The
         entry is the layer's k and v (for ``"shared_attn"`` before the ring
         layout), the Mamba2 ``ssm`` state and ``conv`` inputs, or an xLSTM
-        ``state`` tuple."""
+        ``state`` tuple.  ``e0`` is the embedding's output (``"hybrid"``)."""
         cfg = self.cfg
+        if kind == "hybrid":
+            use, b = self._uses[i]
+            mem = self.mem[b]
+            with L.model_span("model.shared_block", block=b, use=use):
+                t = L.shared_block(mem.attn, mem.ffn, blk.use, cfg, x, e0, positions)
+            x, ssm, conv = L.mamba_block(blk.mamba, cfg, x, add=t)
+            return x, {"ssm": ssm, "conv": conv}
         if kind == "mamba":
             x, ssm, conv = L.mamba_block(blk.mamba, cfg, x)
             return x, {"ssm": ssm, "conv": conv}
@@ -286,6 +308,7 @@ class LM(nn.Module):
         cfg = self.cfg
         B, S = tokens.shape
         x = L.embed(self.embed, cfg, tokens)
+        e0 = x if "hybrid" in cfg.pattern else None
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         memory = self._memory(audio_embed, vision_embed)
         per_pos: list[list[dict]] = [[] for _ in cfg.pattern]
@@ -296,7 +319,7 @@ class LM(nn.Module):
                                                  _save_products)
         for i, blk in enumerate(self.blocks):
             kind = cfg.block_kind(i)
-            args = (kind, blk, x, positions, memory)
+            args = (kind, blk, x, positions, memory, e0, i)
             x, entry = checkpoint(self._block, *args, **kw) if recompute \
                 else self._block(*args)
             if return_cache:
@@ -345,7 +368,7 @@ class LM(nn.Module):
             e = cfg.ssm_expand * cfg.d_model
             return {"ssm": zeros((batch, e // cfg.ssm_head_dim, cfg.ssm_head_dim,
                                   cfg.ssm_state), f32),
-                    "conv": zeros((batch, cfg.ssm_conv_width - 1, e))}
+                    "conv": zeros((batch, cfg.ssm_conv_width - 1, L.conv_channels(cfg)))}
         if kind == "mlstm":
             hd = 2 * cfg.d_model // H
             return {"state": (zeros((batch, H, hd, hd), f32), zeros((batch, H, hd), f32),
@@ -454,6 +477,9 @@ class LM(nn.Module):
                 x, state = block(getattr(blk, kind), cfg, x, state=cc["state"])
                 for dst, src in zip(cc["state"], state):
                     dst.copy_(src)
+            elif kind == "hybrid":
+                raise NotImplementedError(f"{cfg.name}: decoding through shared "
+                                          "blocks is not ported (training and prefill are)")
             elif kind == "shared_attn":
                 h, _, _ = L.attn_decode(self.shared.attn, cfg, x @ blk.in_proj,
                                         cc["k"], cc["v"], pos, window=cfg.attn_window)

@@ -16,12 +16,14 @@ step; the serving steps take only what changes from call to call.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.models import layers as L
 from repro_torch.models.lm import LM
 from repro_torch.obs import NULL_OBS, Obs
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
@@ -88,10 +90,13 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
 
     def train_step(state: dict, batch: dict, obs: Obs = NULL_OBS,
                    clock: CardClock | None = None, **attrs) -> tuple[dict, dict]:
-        if mesh is None:
-            return _train_step(state, batch, obs, clock, attrs)
-        with use_rules(mesh, rules), implicit_replication():
-            return _train_step(state, batch, obs, clock, attrs)
+        # the model's own spans (model.*, phases without a card interval) and
+        # counters go into obs
+        with L.recording(functools.partial(phase, obs), obs.inc):
+            if mesh is None:
+                return _train_step(state, batch, obs, clock, attrs)
+            with use_rules(mesh, rules), implicit_replication():
+                return _train_step(state, batch, obs, clock, attrs)
 
     def _train_step(state: dict, batch: dict, obs: Obs, clock: CardClock | None,
                     attrs: dict) -> tuple[dict, dict]:

@@ -90,15 +90,15 @@ def mm1(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 # The kernels' tiles (FwdCfg, DkdvCfg, DqCfg in the source): keys a forward tile,
 # query rows a pass-A step, keys a pass-B tile.
 def fwd_keys(hd: int) -> int:
-    return 32 if hd == 256 else 64
+    return 32 if hd >= 224 else 64
 
 
 def dkdv_rows(hd: int) -> int:
-    return 32 if hd == 256 else 64
+    return 32 if hd >= 224 else 64
 
 
 def dq_keys(hd: int) -> int:
-    return 16 if hd == 256 else 64
+    return 16 if hd >= 224 else 64
 
 
 def _mask(Sq, Skv, causal, window) -> np.ndarray:
@@ -328,10 +328,10 @@ def test_emulation_follows_the_kernel_source():
         block = re.search(r"struct " + name + r" \{(.*?)\n\};", src, re.S).group(1)
         return re.search(r"static constexpr int " + field + r" = ([^;]*);", block).group(1)
 
-    assert cfg("FwdCfg", "BN") == "HD == 256 ? 32 : 64"
-    assert cfg("DkdvCfg", "BMQ") == "HD == 256 ? 32 : 64"
-    assert cfg("DqCfg", "BN") == "HD == 256 ? 16 : 64"
-    for hd in (16, 32, 64, 80, 128, 256):
-        assert fwd_keys(hd) == (32 if hd == 256 else 64)
-        assert dkdv_rows(hd) == (32 if hd == 256 else 64)
-        assert dq_keys(hd) == (16 if hd == 256 else 64)
+    assert cfg("FwdCfg", "BN") == "HD >= 224 ? 32 : 64"
+    assert cfg("DkdvCfg", "BMQ") == "HD >= 224 ? 32 : 64"
+    assert cfg("DqCfg", "BN") == "HD >= 224 ? 16 : 64"
+    for hd in (16, 32, 64, 80, 128, 224, 256):
+        assert fwd_keys(hd) == (32 if hd >= 224 else 64)
+        assert dkdv_rows(hd) == (32 if hd >= 224 else 64)
+        assert dq_keys(hd) == (16 if hd >= 224 else 64)
