@@ -62,7 +62,12 @@ average taken at the phase's start and end (read only, never a check):
            3xTF32 kernels) held and timed beside SDPA's, and replayed from a CUDA
            graph; two fp32 backward calls giving dq, dk and dv bit for bit there and
            at head_dim 80 and 256; both fp32 kernels timed at qwen2-7b's training
-           shape beside SDPA in fp32;
+           shape beside SDPA in fp32; the chunked SSD (csrc/ssd.cu) forward and
+           backward against the plain chunkwise and sequential forms at
+           tools/ssd_bench.py's cases (zamba2-7b's training shape in bf16 and fp16,
+           zamba2-2.7b's in float32, one group with h0, a ragged head tile, d_state
+           128, head_dim 128), and timed beside the plain form at the two training
+           shapes;
   small    reduced fp32 models on the card (through the kernels) against the same
            weights on the CPU (plain versions), one per family: qwen2-7b, gemma-7b,
            qwen3-32b, granite-34b, qwen3-moe, dbrx, llama-3.2-vision, whisper, zamba2,
@@ -117,7 +122,9 @@ average taken at the phase's start and end (read only, never a check):
            before the next phase;
   train_zamba  (the model before freed) the same for zamba2-2.7b at full width, 6 of
            54 layers (4 Mamba2, 2 occurrences of the shared attention block), 4
-           steps: flash at head_dim 80 forward and backward, both on wgmma;
+           steps: flash at head_dim 80 forward and backward, both on wgmma; every
+           chunkwise SSD call (the model's model.ssd.chunked) on the SSD kernels,
+           forward and backward (ssd_engagement);
   train_zamba_mesh  train_zamba again through the Trainer's mesh path, as train_mesh
            is train's: the Mamba2 scans on the local shards through local_map, every
            step's loss within 5e-3 of train_zamba's;
@@ -193,6 +200,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -505,7 +513,9 @@ def run(args, torch) -> None:
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, modality_inputs
     from repro_torch.models.convert import (export_jax_train_state,
                                             jax_train_state_like, load_jax_train_state)
+    from repro_torch.models import layers as L
     from repro_torch.models.lm import LM
+    from repro_torch.obs import Obs
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.trainstep import (init_train_state, make_prefill_step,
                                                 make_serve_step, make_train_step)
@@ -1546,6 +1556,30 @@ def run(args, torch) -> None:
 
     adamw_check, adamw_timed = timed_adamw()
 
+    # The chunked SSD (csrc/ssd.cu) against the model's plain chunkwise form
+    # (_ssd_chunked_groups on the card) and, at one group, the sequential form, forward
+    # and backward: tools/ssd_bench.py's cases (zamba2-7b's training shape in bf16 and
+    # fp16, zamba2-2.7b's path shape in float32, one group with h0, a ragged head tile,
+    # d_state 128, head_dim 128, a one-chunk case) at its tolerances (float32 1e-4 of
+    # the largest entry: float32 products on both sides in another order; 16 bits the
+    # output's rounding); then the two training shapes timed beside the plain form.
+    spec = importlib.util.spec_from_file_location("ssd_bench", ROOT / "tools" / "ssd_bench.py")
+    ssd_bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ssd_bench)
+    ssd_cases = [ssd_bench.check_case(name) for name in ssd_bench.CASES]
+    for row in ssd_cases:
+        if not row["ok"]:
+            fail(f"ssd {row['case']}: launches {row['launches']} (want [1, 1]), errors "
+                 f"{row['errors']} against tolerance {row['tol']}")
+    ssd_timed = {name: ssd_bench.time_case(name, 5) for name in ("zamba2_7b", "zamba2_2p7b")}
+    torch.cuda.empty_cache()
+    ssd_main = {**next(r for r in ssd_cases if r["case"] == "zamba2_7b"), **ssd_timed["zamba2_7b"]}
+    print(f"  ssd: zamba2-7b's shape forward {ssd_main['kernel_fwd_ms']:.3f} ms, forward + "
+          f"backward {ssd_main['kernel_fwd_bwd_ms']:.3f} ms (plain "
+          f"{ssd_main['plain_fwd_bwd_ms']:.1f} ms), "
+          f"{100 * ssd_main['share_of_bound_fwd_bwd']:.1f} % of the 3xTF32 bound",
+          flush=True)
+
     kernels = {
         "rmsnorm": {
             "name": "rmsnorm", "route": "cuda",
@@ -1638,6 +1672,24 @@ def run(args, torch) -> None:
         # the fused AdamW at the train phase's leaf set; `launches` filled from the
         # main paths, each fused step's by `train_launches`
         "adamw": adamw_timed,
+        # the chunked SSD at zamba2-7b's training shape (bf16), forward, and forward +
+        # backward; zamba2-2.7b's float32 path shape beside it
+        "ssd": {
+            "name": "ssd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "none (the plain chunkwise SSD, models/layers.py _ssd_chunked_groups)",
+            "launches": 0, "dtype": ssd_main["dtype"], "shape": ssd_main["shape"],
+            "tol": ssd_main["tol"], "max_abs_err": max(ssd_main["errors"].values()),
+            "ms": ssd_main["kernel_fwd_ms"], "plain_ms": ssd_main["plain_fwd_ms"],
+            "bound_ms": ssd_main["bound_fwd_ms"], "bound_by": "operations",
+            "kernel_ms": ssd_main["kernel_device_ms"], "long_shape": ssd_timed["zamba2_2p7b"]},
+        "ssd_bwd": {
+            "name": "ssd_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "none (autograd of the plain chunkwise SSD under its checkpoint)",
+            "launches": 0, "dtype": ssd_main["dtype"], "shape": ssd_main["shape"],
+            "tol": ssd_main["tol"],
+            "ms": ssd_main["kernel_fwd_bwd_ms"], "plain_ms": ssd_main["plain_fwd_bwd_ms"],
+            "bound_ms": ssd_main["bound_fwd_bwd_ms"], "bound_by": "operations",
+            "share_of_bound": ssd_main["share_of_bound_fwd_bwd"]},
     }
     report["kernels_checked"] = {
         "phase": "kernels", "ok": not FAILURES,
@@ -1651,7 +1703,8 @@ def run(args, torch) -> None:
         "flash_bwd_refusal": bwd_refusal, "flash_uncompiled_head_dim": uncompiled,
         "rmsnorm_cases": rms_cases,
         "flash_bwd_cases": flash_bwd_cases, "rmsnorm_bwd_cases": rms_bwd_cases,
-        "adamw_check": adamw_check, "kernels": list(kernels.values())}
+        "adamw_check": adamw_check, "ssd_cases": ssd_cases,
+        "kernels": list(kernels.values())}
     emit(with_clocks(report["kernels_checked"], start))
     stop_if_failed("kernels")
 
@@ -1664,10 +1717,18 @@ def run(args, torch) -> None:
     KIND_LAUNCHES = {"attn": (2, 1, 0), "cross_attn": (3, 1, 1), "shared_attn": (2, 1, 0),
                      "mamba": (2, 0, 0), "mlstm": (1, 0, 0), "slstm": (2, 0, 0)}
 
-    def forward_launches(c) -> dict:
-        """Kernel launches of one forward (prefill) of config c: each block's by
-        KIND_LAUNCHES, q-norm and k-norm per attention (qk_norm), the final norm,
-        and the encoder's two norms and one flash call per layer and enc_norm."""
+    def ssd_calls(c, seq: int) -> int:
+        """Chunkwise SSD calls of one forward over `seq` tokens: one a Mamba2 layer
+        (a hybrid layer's too) where the sequence takes the chunkwise form, each the
+        kernels' (``model.ssd.chunked`` counts the same calls)."""
+        chunked = seq > L.MAMBA_CHUNK and seq % L.MAMBA_CHUNK == 0
+        return chunked * sum(c.block_kind(i) in ("mamba", "hybrid") for i in range(c.n_layers))
+
+    def forward_launches(c, seq: int = 0) -> dict:
+        """Kernel launches of one forward (prefill) of config c over `seq` tokens: each
+        block's by KIND_LAUNCHES, q-norm and k-norm per attention (qk_norm), the final
+        norm, and the encoder's two norms and one flash call per layer and enc_norm;
+        the chunked SSD's forward at each Mamba2 layer when `seq` is chunkwise."""
         kinds = [c.block_kind(i) for i in range(c.n_layers)]
         rms = sum(KIND_LAUNCHES[k][0] + 2 * c.qk_norm * KIND_LAUNCHES[k][1]
                   for k in kinds) + 1
@@ -1676,7 +1737,8 @@ def run(args, torch) -> None:
             rms += 2 * c.encoder_layers + 1
             flash += c.encoder_layers
         return {"rmsnorm": rms, "flash_attention": flash,
-                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0}
+                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0,
+                "ssd": ssd_calls(c, seq), "ssd_bwd": 0}
 
     def decode_launches(c) -> dict:
         """One decode step: the same norms (whisper re-encodes every step, as the
@@ -1700,16 +1762,17 @@ def run(args, torch) -> None:
                     for variant, name in FLASH_BWD_VARIANT_KERNELS.items()})
         return out
 
-    def train_launches(c, fused: bool = True) -> dict:
-        """One train step without remat: each forward launch has its backward, and
-        the update the fused AdamW's kernels where its leaves are plain CUDA tensors
-        (``fused``; a mesh's DTensors take the plain update)."""
-        fwd = forward_launches(c)
+    def train_launches(c, fused: bool = True, seq: int = 0) -> dict:
+        """One train step over `seq` tokens without remat: each forward launch has its
+        backward, and the update the fused AdamW's kernels where its leaves are plain
+        CUDA tensors (``fused``; a mesh's DTensors take the plain update)."""
+        fwd = forward_launches(c, seq)
         leaves = LM(c, device="meta").parameters()
         return {"rmsnorm": fwd["rmsnorm"], "rmsnorm_bwd": fwd["rmsnorm"],
                 "flash_attention": fwd["flash_attention"],
                 "flash_attention_bwd": fwd["flash_attention"],
-                "adamw": adamw_kernels(leaves) if fused else 0}
+                "adamw": adamw_kernels(leaves) if fused else 0,
+                "ssd": fwd["ssd"], "ssd_bwd": fwd["ssd"]}
 
     def open_gates(model) -> None:
         """The reference initialises the cross-attention gates at zero, which makes
@@ -1897,7 +1960,7 @@ def run(args, torch) -> None:
         prefill_ms = (time.perf_counter() - t0) * 1e3
         counts_prefill = ops.launch_counts()
         variants_prefill = ops.flash_launches_by_variant()
-        want_prefill = forward_launches(scfg)
+        want_prefill = forward_launches(scfg, prompt)
         n_flash = want_prefill["flash_attention"]
         if counts_prefill != want_prefill:
             fail(f"{phase}: prefill launched {counts_prefill}, expected {want_prefill}")
@@ -2039,7 +2102,7 @@ def run(args, torch) -> None:
         flop_params = n_params
         if n_shared > 1:
             flop_params += (n_shared - 1) * sum(p.numel() for p in model.shared.parameters())
-        per_step = train_launches(tcfg, fused)
+        per_step = train_launches(tcfg, fused, seq)
         want = {k: steps * n for k, n in per_step.items()}
         fwd_kind = bwd_kind = expected_variant(tcfg.torch_dtype)
         path_want[phase] = by_kernel(want, fwd_kind, bwd_kind)
@@ -2136,12 +2199,25 @@ def run(args, torch) -> None:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
+        # the model's own counters (model.ssd.<form>), for the SSD's engagement
+        trainer.obs = Obs()
         # the main path, with the counts at 0
         ops.reset_launch_counts()
         state, hist = trainer.run(state)
         torch.cuda.synchronize()
         out = train_reading(phase, tcfg, trainer.model, hist, steps, B_TRAIN, S_TRAIN,
                             list(range(steps)), fused=mesh is None)
+        chunked = trainer.obs.metrics.counters_with_prefix("model.ssd.").get(
+            "model.ssd.chunked", 0)
+        if chunked:
+            # every chunkwise SSD call launched the kernels, forward and backward
+            counts = ops.launch_counts()
+            out["ssd_engagement"] = {"model.ssd.chunked": chunked, "ssd": counts["ssd"],
+                                     "ssd_bwd": counts["ssd_bwd"],
+                                     "share": counts["ssd"] / chunked}
+            if not counts["ssd"] == counts["ssd_bwd"] == chunked:
+                fail(f"{phase}: {chunked} chunkwise SSD calls, {counts['ssd']} kernel "
+                     f"forwards and {counts['ssd_bwd']} backwards")
         out["init_s"] = round(init_s, 2)
         if mesh is not None:
             out.update(mesh_reading(trainer, state, ref, out))
@@ -2505,7 +2581,6 @@ def run(args, torch) -> None:
     # cannot drive them (tests/test_torch_pipeline.py holds them on gloo ranks).
     def pipeline_phase() -> dict:
         from repro_torch.launch.mesh import make_mesh
-        from repro_torch.models import layers as L
         from repro_torch.parallel.pipeline import pad_stages, pipeline_forward
         phase = "pipeline"
         start = probe()
@@ -2571,7 +2646,7 @@ def run(args, torch) -> None:
             seq_ms = elapsed_ms(lambda: step(sequential))
             pipe_ms2 = elapsed_ms(lambda: step(pipe))
         per_layer = {"rmsnorm": 2, "flash_attention": 1, "rmsnorm_bwd": 2,
-                     "flash_attention_bwd": 1, "adamw": 0}
+                     "flash_attention_bwd": 1, "adamw": 0, "ssd": 0, "ssd_bwd": 0}
         want = {k: n * PIPE_LAYERS * PIPE_M for k, n in per_layer.items()}
         fwd_kind = bwd_kind = expected_variant(bf16)
         path_want[phase] = by_kernel(want, fwd_kind, bwd_kind)
@@ -2715,7 +2790,6 @@ def run(args, torch) -> None:
     # all-reduces (class "nccl"), fitted; the fitted alpha and beta, the per-class peak
     # GB/s and the composite step's simulated against measured error.
     def calibrate_phase() -> dict:
-        import importlib.util
         phase = "calibrate"
         start = probe()
         spec = importlib.util.spec_from_file_location(

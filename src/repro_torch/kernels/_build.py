@@ -139,6 +139,20 @@ class AdamwCall(ctypes.Structure):
                 + [("device", _I), ("launched", _I)])
 
 
+SSD_POINTERS = ("x", "B", "C", "dt", "A_log", "D", "h0", "dy", "dh_fin", "y", "h_fin", "dx",
+                "dB", "dC", "ddt", "dA_log", "dD", "dh0", "states", "dstates", "decay",
+                "part_bc", "part_head", "stream")
+SSD_STRIDES = ("x", "b", "c", "dt", "dy")
+
+
+class SsdCall(ctypes.Structure):
+    """``struct SsdCall`` of ``csrc/ssd.cu``: one forward's or backward's arguments."""
+    _fields_ = ([(n, _P) for n in SSD_POINTERS]
+                + [(n, _I) for n in ("batch", "seqlen", "heads", "groups", "hd", "state")]
+                + [(f"{t}_{s}", _LL) for t in SSD_STRIDES for s in ("sb", "ss")]
+                + [(n, _I) for n in ("x_dtype", "dt_dtype", "a_dtype", "d_dtype", "device")])
+
+
 #: the library's C interface, name -> (restype, argtypes); ``load()`` binds it and
 #: a CPU test holds it against the ``extern "C"`` declarations in ``csrc/``
 #: (a pointer to a struct is a ``c_void_p`` here: the address of a ``RmsnormCall``)
@@ -151,6 +165,8 @@ SIGNATURES = {
     "repro_flash_attention_bwd": (_I, [_P]),
     "repro_flash_attention_bwd_variant": (_I, [_I, _I]),
     "repro_adamw_step": (_I, [_P]),
+    "repro_ssd_fwd": (_I, [_P]),
+    "repro_ssd_bwd": (_I, [_P]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -162,6 +178,8 @@ REFUSALS = {
     -4: "the driver's cuTensorMapEncodeTiled is unavailable",
     -5: "a row too wide for the kernel's shared memory, or a bad worker count",
     -6: "scratch too small for the fused AdamW's partial sums",
+    -7: "an SSD shape the kernels do not take (heads not a multiple of the groups, or "
+        "the sequence not a multiple of the chunk)",
 }
 
 

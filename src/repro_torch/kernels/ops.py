@@ -1,8 +1,8 @@
 """Public kernel entry points.
 
-``flash_attention`` and ``rmsnorm`` launch the hand-written CUDA kernels for
-CUDA tensors (building the library at first use) and raise if they cannot;
-for CPU tensors they return the plain versions' results.  Both are
+``flash_attention``, ``rmsnorm`` and ``ssd_chunked`` launch the hand-written CUDA
+kernels for CUDA tensors (building the library at first use) and raise if they
+cannot; for CPU tensors they return the plain versions' results.  All three are
 differentiable: their backwards are kernels too on the card and plain versions
 on the CPU.  No CUDA tensor ever reaches a plain version through these
 functions.
@@ -14,9 +14,11 @@ from repro_torch.kernels import adamw as _adamw_mod
 from repro_torch.kernels import flash_attention as _flash_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm_mod
+from repro_torch.kernels import ssd as _ssd_mod
 
 flash_attention = _flash_mod.flash_attention
 rmsnorm = _rmsnorm_mod.rmsnorm
+ssd_chunked = _ssd_mod.ssd_chunked
 mha_reference = ref.mha_reference
 flash_attention_lse_reference = ref.flash_attention_lse_reference
 flash_attention_bwd_reference = ref.flash_attention_bwd_reference
@@ -24,12 +26,15 @@ rmsnorm_reference = ref.rmsnorm_reference
 rmsnorm_bwd_reference = ref.rmsnorm_bwd_reference
 
 #: name -> (module, its counter): the forward and backward launches of each kernel,
-#: and the fused AdamW's kernels (``optim.adamw.adamw_update`` on plain CUDA tensors)
+#: the fused AdamW's kernels (``optim.adamw.adamw_update`` on plain CUDA tensors), and
+#: the chunked SSD's forward and backward calls (``models.layers._mamba_scan``)
 _COUNTED = {"rmsnorm": (_rmsnorm_mod, "launches"),
             "rmsnorm_bwd": (_rmsnorm_mod, "bwd_launches"),
             "flash_attention": (_flash_mod, "launches"),
             "flash_attention_bwd": (_flash_mod, "bwd_launches"),
-            "adamw": (_adamw_mod, "launches")}
+            "adamw": (_adamw_mod, "launches"),
+            "ssd": (_ssd_mod, "launches"),
+            "ssd_bwd": (_ssd_mod, "bwd_launches")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -810,7 +810,9 @@ def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
     gradients on, the chunkwise form keeps only its inputs for the backward and
     recomputes the rest there (non-reentrant ``torch.utils.checkpoint``): its
     (B, n, c, c, heads) float32 decay ratios would otherwise stay alive, several
-    of them, for every layer.
+    of them, for every layer.  On CUDA tensors the chunkwise form is the
+    hand-written kernels (``ops.ssd_chunked``, which also save only the inputs),
+    one group or several; the plain forms here are the CPU's.
 
     B_in and C_in are (B,S,N), or (B,S,G,N) for G groups: head h reads group
     ``h // (nh / G)``.  Grouped, the chunkwise form is :func:`_ssd_chunked_groups`
@@ -827,6 +829,8 @@ def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
     S = x.shape[1]
     if B_in.ndim == 4 and not (S % chunk or S <= chunk):
         _count_ssd("chunked")
+        if x.is_cuda:
+            return ops.ssd_chunked(x, B_in, C_in, dt, A_log, D, h0, chunk)
         if torch.is_grad_enabled():
             return checkpoint(_ssd_chunked_groups, x, B_in, C_in, dt, A_log, D, hd, h0,
                               chunk, use_reentrant=False)
@@ -844,6 +848,8 @@ def _mamba_scan(x, B_in, C_in, dt, A_log, D, hd, *, h0=None,
         _count_ssd("sequential")
         return _mamba_scan_seq(x, B_in, C_in, dt, A_log, D, hd, h0=h0)
     _count_ssd("chunked")
+    if x.is_cuda:
+        return ops.ssd_chunked(x, B_in[:, :, None], C_in[:, :, None], dt, A_log, D, h0, chunk)
     if torch.is_grad_enabled():
         return checkpoint(_ssd_chunked, x, B_in, C_in, dt, A_log, D, hd, h0, chunk,
                           use_reentrant=False)

@@ -185,7 +185,7 @@ def test_ops_on_cpu_take_plain_versions_and_launch_nothing():
     (ops.flash_attention(q, k, v).sum() + ops.rmsnorm(x, w).sum()).backward()
     assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_bwd": 0,
                                    "flash_attention": 0, "flash_attention_bwd": 0,
-                                   "adamw": 0}
+                                   "adamw": 0, "ssd": 0, "ssd_bwd": 0}
     assert ops.flash_launches_by_variant() == {"tf32x3": 0, "sm90_wgmma": 0}
     assert ops.flash_bwd_launches_by_variant() == {"tf32x3": 0, "sm90_wgmma": 0}
     assert flash_mod.launches == 0 and rmsnorm_mod.launches == 0

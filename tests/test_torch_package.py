@@ -124,16 +124,18 @@ def test_chip_smoke_refuses_to_run_without_a_card():
 KERNEL_SOURCES = sorted(p for p in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").iterdir()
                         if p.suffix in (".cu", ".cuh"))
 REPLACED = ("src/repro/kernels/rmsnorm.py", "src/repro/kernels/flash_attention.py")
-#: the one source that replaces no TPU kernel, and the reference's code it stands for
+#: the sources that replace no TPU kernel, and the reference's code each stands for
 NO_TPU_KERNEL = {"src/repro_torch/kernels/csrc/adamw.cu":
-                 "src/repro/optim/adamw.py (adamw_update)"}
+                 "src/repro/optim/adamw.py (adamw_update)",
+                 "src/repro_torch/kernels/csrc/ssd.cu":
+                 "src/repro/models/layers.py (_mamba_scan)"}
 
 
 @pytest.mark.parametrize("path", KERNEL_SOURCES, ids=_rel)
 def test_kernel_sources_name_what_they_replace(path):
     """Every CUDA source's header note names the TPU kernel it replaces (file and
-    function), and what bounds it on this card; the fused AdamW, which replaces none,
-    names the reference's code it stands for (``NO_TPU_KERNEL``)."""
+    function), and what bounds it on this card; the fused AdamW and the chunked SSD,
+    which replace none, name the reference's code they stand for (``NO_TPU_KERNEL``)."""
     head = path.read_text().split("#include")[0]
     if _rel(path) in NO_TPU_KERNEL:
         assert f"Replaces no TPU kernel: it stands for {NO_TPU_KERNEL[_rel(path)]}" in head
